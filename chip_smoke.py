@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mevi_tpu_torch``) on one NVIDIA
-GPU: builds the hand-written bucket kernel from ``mevi_tpu_torch/csrc``,
-holds it against its plain PyTorch version, then serves batches end to
-end at full width over an MS MARCO-scale corpus.
+GPU: builds the hand-written bucket kernels from ``mevi_tpu_torch/csrc``,
+holds each against its plain PyTorch version, serves batches end to end
+and runs the offline evaluation at full width over an MS MARCO-scale
+corpus.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases:
-  1. the bucket kernel (v3 and fused modes) against its plain version at
-     serving geometry (G = 512 x 10 buckets, cap 512, d 768), bf16
-     queries over bf16 and int8 corpora, with kernel / plain / yardstick
-     times (CUDA events) and its bytes, achieved rate and bounds;
+  1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
+     versions at serving geometry (G = 512 x 10 buckets, cap 512, d 768),
+     bf16 queries over bf16 and int8 corpora, with kernel / plain /
+     yardstick times (CUDA events) and their bytes, achieved rate and
+     bounds; then ``scripts.profile_bucket.profile`` (the v2 path) over
+     the int8 corpus;
   2. the main path: ``BucketServer`` with the NCI model (T5-base
      12 + 6 layers, PAWA 4 layers, kary 32, M 4) and the T5 query tower
      (12 + 12 layers), random bf16 weights from the seed, over
@@ -18,7 +21,16 @@ Phases:
      cap 512, pool 1000, length penalty 0.8; with the beam's own codes
      and with doc-weighted ``cidx_override``; then the fused-kernel
      server; one batch's pool recomputed with the plain bucket version;
-  3. one served batch over the same corpus quantized to int8.
+  2b. the raw-score path on the last override batch:
+     ``bucket_scores_dispatch`` (raw kernel) + ``mask_pool_topk``, held
+     against the server's pool;
+  3. one served batch over the same corpus quantized to int8;
+  4. offline evaluation (``Evaluator``, ``InferConfig`` defaults: 10
+     beams, cap 4096, pool 1000) of 1,024 queries at batch 512 over the
+     bf16 index; coarse metrics against a plain recomputation; host
+     streaming over a host copy of the int8 corpus against the device
+     reranker; ``eval_all_documents`` on the device against the
+     host-streamed scan; the result tsvs written and read back.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels; the last line is
@@ -33,6 +45,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,9 +56,17 @@ BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 FULL = dict(ndocs=8_841_823, d=768, kary=32, levels=4, nonempty=305_777,
             sigma=1.9, batch=512, qlen=32, beams=10, cap=512, pool=1000,
             length_penalty=0.8, warmup=2, timed=5, kernel_reps=20,
+            profile_reps=5, eval_queries=1024, stream_queries=64,
             vocab=32128, d_kv=64, d_ff=3072, heads=12, enc_layers=12,
             dec_layers=6, qdec_layers=12)
 KERNEL_SRC = "mevi_tpu_torch/csrc/bucket.cu"
+REPLACES = {
+    "v3": "mevi_tpu/ops/bucket.py:297 (_kernel_v3; pallas_call :366)",
+    "fused": "mevi_tpu/ops/bucket.py:93 (_fused_kernel; pallas_call :196)",
+    "v2": "mevi_tpu/ops/bucket.py:206 (_kernel_v2; pallas_call :287)",
+    "raw": "mevi_tpu/ops/bucket.py:41 (_kernel, v1; pallas_call :82)"}
+WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
+           "v2": "bucket_scores_v2", "raw": "bucket_scores"}
 
 
 def emit(**kw):
@@ -129,81 +150,129 @@ def phase1_cidx(rng, doc_cluster, offsets, G):
 # phase 1: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def bytes_of(starts, ends, cap, d, item, G):
-    """(full-window, valid-rows, unique-valid-rows) bytes: corpus rows
-    read + G*d bf16 query bytes + G*cap*8 output bytes."""
+def _unique(lo, hi):
+    """Rows covered by the union of the [lo, hi) ranges."""
+    keep = hi > lo
+    if not keep.any():
+        return 0
+    mark = np.zeros(int(hi.max()) + 2, np.int64)
+    np.add.at(mark, lo[keep], 1)
+    np.add.at(mark, hi[keep], -1)
+    return int((np.cumsum(mark) > 0).sum())
+
+
+def bytes_of(starts, ends, cap, d, item, G, n_rows):
+    """Bytes each mode must move: corpus rows read + G*d bf16 query bytes
+    + outputs (masked modes G*cap*8: scores and rows; raw G*cap*4).
+    Masked: full window, valid rows, unique valid rows; raw: full
+    window, unique window rows (clipped at N - 1)."""
     s = starts.astype(np.int64)
     e = ends.astype(np.int64)
     al = (s // 8) * 8
     lo, hi = s, np.minimum(e, al + cap)
     valid = np.maximum(hi - lo, 0)
-    mark = np.zeros(int(e.max()) + 2 if len(e) else 1, np.int64)
-    np.add.at(mark, lo[valid > 0], 1)
-    np.add.at(mark, hi[valid > 0], -1)
-    unique = int((np.cumsum(mark) > 0).sum())
-    rest = G * d * 2 + G * cap * 8
-    return (G * cap * d * item + rest, int(valid.sum()) * d * item + rest,
-            unique * d * item + rest)
+    q_bytes = G * d * 2
+    full = G * cap * d * item
+    masked_out = q_bytes + G * cap * 8
+    raw_out = q_bytes + G * cap * 4
+    return {"full_window": full + masked_out,
+            "valid_rows": int(valid.sum()) * d * item + masked_out,
+            "unique_rows": _unique(lo, hi) * d * item + masked_out,
+            "raw_full_window": full + raw_out,
+            "raw_unique_rows": _unique(al, np.minimum(al + cap, n_rows))
+            * d * item + raw_out}
+
+
+def bound_ms(nbytes, flops):
+    """The larger of bytes over the HBM rate and flops over the bf16
+    tensor peak, in ms."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
 
 
 def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
+    """Every mode against its plain version on the phase-1 buckets;
+    kernel ms timed at the launch alone (the wrappers' bounds check, a
+    host sync, stays out)."""
     from mevi_tpu_torch.ops import bucket as B
     ci = cidx.long()
     st, en = off_d[ci].contiguous(), off_d[ci + 1].contiguous()
+    al = B.align_down(st)
     G, d = q.shape
     plain = B.bucket_scores_v3_plain(semb, st, en, q, cap)
+    plain_raw = B.bucket_scores_plain(semb, al, q, cap)
+    runs = {
+        "v3": (lambda: B.bucket_scores_v3(semb, st, en, q, cap, device=dev),
+               lambda: B._launch(semb, q, cap, 8, starts=st, ends=en)),
+        "fused": (lambda: B.bucket_scores_fused(semb, off_d, cidx, q, cap,
+                                                device=dev),
+                  lambda: B._launch(semb, q, cap, 8, offsets=off_d,
+                                    cidx=cidx)),
+        "v2": (lambda: B.bucket_scores_v2(semb, st, en, q, cap, device=dev),
+               lambda: B._launch_v2(semb, st, en, q, cap, 8)),
+        "raw": (lambda: B.bucket_scores(semb, al, q, cap, device=dev),
+                lambda: B._launch_raw(semb, al, q, cap))}
+    ok = plain[1] >= 0
     results = {}
-    for mode in ("v3", "fused"):
-        if mode == "v3":
-            out = B.bucket_scores_v3(semb, st, en, q, cap, device=dev)
-            launch = (lambda: B._launch(semb, q, cap, 8, starts=st,
-                                        ends=en))
-        else:
-            out = B.bucket_scores_fused(semb, off_d, cidx, q, cap,
-                                        device=dev)
-            launch = (lambda: B._launch(semb, q, cap, 8, offsets=off_d,
-                                        cidx=cidx))
+    for mode, (checked, bare) in runs.items():
+        out = checked()
         torch.cuda.synchronize()
-        if not torch.equal(out[1], plain[1]):
-            raise AssertionError(f"{tag}/{mode}: rows differ from plain")
-        ok = out[1] >= 0
-        torch.testing.assert_close(out[0], plain[0], rtol=1e-4, atol=1e-3)
-        err = float((out[0] - plain[0]).abs()[ok].max()) if ok.any() else 0.0
-        results[mode] = dict(
-            max_abs_err=err, ms=timed_ms(launch, reps),
-            wrapper_launches=getattr(B, f"bucket_scores_{mode}").launches)
+        if mode == "raw":
+            torch.testing.assert_close(out, plain_raw, rtol=1e-4, atol=1e-3)
+            err = float((out - plain_raw).abs().max())
+        else:
+            if not torch.equal(out[1], plain[1]):
+                raise AssertionError(f"{tag}/{mode}: rows differ from plain")
+            torch.testing.assert_close(out[0], plain[0], rtol=1e-4,
+                                       atol=1e-3)
+            err = (float((out[0] - plain[0]).abs()[ok].max()) if ok.any()
+                   else 0.0)
+        results[mode] = dict(max_abs_err=err, ms=timed_ms(bare, reps))
     plain_ms = timed_ms(lambda: B.bucket_scores_v3_plain(
         semb, st, en, q, cap), 3)
+    plain_raw_ms = timed_ms(lambda: B.bucket_scores_plain(semb, al, q, cap),
+                            3)
 
     def yardstick():
-        al = torch.div(st.long(), 8, rounding_mode="floor") * 8
-        rows = (al[:, None] + torch.arange(cap, device=dev)).clamp_(
+        rows = (al.long()[:, None] + torch.arange(cap, device=dev)).clamp_(
             0, semb.shape[0] - 1)
         block = semb.index_select(0, rows.reshape(-1)).view(G, cap, d)
         if block.dtype != q.dtype:
             block = block.to(q.dtype)
         return torch.bmm(block, q.unsqueeze(-1))
     yard_ms = timed_ms(yardstick, 5)
-    full_b, valid_b, uniq_b = bytes_of(st.cpu().numpy(), en.cpu().numpy(),
-                                       cap, d, semb.element_size(), G)
+    nb = bytes_of(st.cpu().numpy(), en.cpu().numpy(), cap, d,
+                  semb.element_size(), G, semb.shape[0])
     n_valid = int(ok.sum())
-    flop_ms = 2.0 * n_valid * d / BF16_FLOPS * 1e3
-    bound = {k: max(b / HBM_BYTES_PER_S * 1e3, flop_ms)
-             for k, b in (("full_window", full_b), ("valid_rows", valid_b),
-                          ("unique_rows", uniq_b))}
+    flops_valid, flops_full = 2.0 * n_valid * d, 2.0 * G * cap * d
     for mode, r in results.items():
-        r.update(plain_ms=plain_ms, yardstick_ms=yard_ms,
-                 bytes_full_window=full_b, bytes_valid_rows=valid_b,
-                 bytes_unique_rows=uniq_b,
-                 gbps_valid_rows=valid_b / (r["ms"] * 1e-3) / 1e9,
-                 bound_ms_full_window=bound["full_window"],
-                 bound_ms_valid_rows=bound["valid_rows"],
-                 bound_ms=bound["unique_rows"])
+        if mode == "raw":
+            r.update(plain_ms=plain_raw_ms,
+                     bytes_full_window=nb["raw_full_window"],
+                     bytes_unique_rows=nb["raw_unique_rows"],
+                     gbps_full_window=nb["raw_full_window"]
+                     / (r["ms"] * 1e-3) / 1e9,
+                     bound_ms_full_window=bound_ms(nb["raw_full_window"],
+                                                   flops_full),
+                     bound_ms=bound_ms(nb["raw_unique_rows"], flops_full))
+        else:
+            r.update(plain_ms=plain_ms,
+                     bytes_full_window=nb["full_window"],
+                     bytes_valid_rows=nb["valid_rows"],
+                     bytes_unique_rows=nb["unique_rows"],
+                     gbps_valid_rows=nb["valid_rows"] / (r["ms"] * 1e-3)
+                     / 1e9,
+                     bound_ms_full_window=bound_ms(nb["full_window"],
+                                                   flops_valid),
+                     bound_ms_valid_rows=bound_ms(nb["valid_rows"],
+                                                  flops_valid),
+                     bound_ms=bound_ms(nb["unique_rows"], flops_valid))
+        r["yardstick_ms"] = yard_ms
         emit(phase=1, corpus=tag, kernel=mode, G=G, cap=cap, d=d,
              valid_slots=n_valid, **r,
              yardstick="index_select + torch.bmm over the gathered "
-                       "(G, cap, d) window (unmasked; no single PyTorch "
-                       "call computes the masked function)")
+                       "(G, cap, d) aligned window (unmasked: the raw "
+                       "function; no single PyTorch call computes the "
+                       "masked one)")
     return results
 
 
@@ -362,6 +431,216 @@ def profile_path(server, batches):
                "calls_per_batch": c / n} for k, ms, c in kern[:12]])
 
 
+def reset_counts():
+    from mevi_tpu_torch.ops import bucket as B
+    for name in WRAPPER.values():
+        getattr(B, name).launches = 0
+
+
+def read_counts():
+    from mevi_tpu_torch.ops import bucket as B
+    return {mode: getattr(B, name).launches for mode, name in WRAPPER.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the raw-score path
+# ---------------------------------------------------------------------------
+
+def raw_path(server, cidx, q_rep, pool_ref, B, dev):
+    """Raw kernel over aligned starts, masked and pooled per query by
+    ``mask_pool_topk``, against the server's (v3) pool of the same
+    buckets.  Returns the raw kernel's launches on this path."""
+    from mevi_tpu_torch.eval import searcher as S
+    from mevi_tpu_torch.ops.bucket import align_down
+    ci = cidx.long()
+    st = server.offsets_d[ci].contiguous()
+    en = server.offsets_d[ci + 1].contiguous()
+    al = align_down(st)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    raw = S.bucket_scores_dispatch(server.sorted_emb, al, q_rep, server.cap,
+                                   device=dev)
+    pooled = S.mask_pool_topk(raw, al, st, en, server.cap, server.pool, B,
+                              server.num_beams)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = read_counts()
+    if n["raw"] == 0:
+        raise AssertionError("2b: the raw kernel never launched")
+    err, n_sep = compare_pools("2b_raw_vs_server", pooled, pool_ref)
+    emit(phase="2b_raw_path", raw_launches=n["raw"], launches=n,
+         raw_plus_mask_pool_ms=ms, max_abs_pool_err=err,
+         ids_compared=n_sep)
+    return n["raw"]
+
+
+# ---------------------------------------------------------------------------
+# phase 4: offline evaluation
+# ---------------------------------------------------------------------------
+
+def plain_coarse_metrics(results, gts, doc_codes, ks):
+    """Coarse Recall/MRR/HitRate@k by a per-query loop over the beam codes
+    (one gt doc a query): the first beam whose code tuple is the gt
+    doc's."""
+    codes = np.concatenate([r.beam_codes for r in results])
+    agg = {m: {k: 0.0 for k in ks} for m in ("recall", "mrr", "hitrate")}
+    for i, g in enumerate(gts):
+        want = tuple(doc_codes[g[0]].tolist())
+        rank = next((j for j, c in enumerate(codes[i].tolist())
+                     if tuple(c) == want), None)
+        for k in ks:
+            hit = rank is not None and rank < k
+            agg["recall"][k] += float(hit)
+            agg["hitrate"][k] += float(hit)
+            agg["mrr"][k] += 1.0 / (rank + 1) if hit else 0.0
+    return {m: {k: v / len(gts) for k, v in d.items()}
+            for m, d in agg.items()}
+
+
+def pools_of(results):
+    return (np.concatenate([r.fine_scores for r in results]),
+            np.concatenate([r.fine_ids for r in results]))
+
+
+def free_g():
+    return subprocess.run(["free", "-g"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+
+
+def eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8, scale,
+               doc_cluster, offsets, doc_ids):
+    from mevi_tpu_torch.config import InferConfig
+    from mevi_tpu_torch.data.io import parse_result_tsv
+    from mevi_tpu_torch.eval.run_eval import Evaluator, write_result_files
+    from mevi_tpu_torch.eval.searcher import FineIndex, FineReranker
+    from mevi_tpu_torch.index.csr import unpack_codes
+    rng = np.random.default_rng(seed + 11)
+    n = cfg["eval_queries"]
+    ids = rng.integers(2, cfg["vocab"], size=(n, cfg["qlen"])).astype(
+        np.int32)
+    mask = np.ones_like(ids)
+    queries = [f"q{i}" for i in range(n)]
+    gts = [[int(g)] for g in rng.integers(0, len(doc_cluster), n)]
+    doc_codes = unpack_codes(doc_cluster, cfg["levels"], cfg["kary"])
+    icfg = InferConfig()
+    B = cfg["batch"]
+
+    # 4a: evaluate over the bf16 index on the card
+    ev = Evaluator(nci, icfg, fine_index=index,
+                   query_rep_fn=qtower.first_token_rep,
+                   doc_codes=doc_codes, device=dev)
+    ev.run_batch(queries[:B], ids[:B], mask[:B])       # warm-up
+    torch.cuda.synchronize()
+    ev.timings.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ev.evaluate(queries, ids, mask, gts, batch_size=B,
+                      keep_results=True)
+    wall = time.perf_counter() - t0
+    n_eval = read_counts()
+    if n_eval["v3"] == 0:
+        raise AssertionError("4: the v3 kernel never launched")
+    ks = sorted({k for k in icfg.recall_num
+                 if k <= icfg.num_return_sequences}
+                | {icfg.num_return_sequences})
+    plain = plain_coarse_metrics(out.results, gts, doc_codes, ks)
+    for m in plain:
+        for k in ks:
+            if abs(plain[m][k] - out.coarse[m][k]) > 1e-12:
+                raise AssertionError(f"4: coarse {m}@{k} differs from the "
+                                     "plain recomputation")
+    fs, fi = pools_of(out.results)
+    if fs.shape != (n, max(icfg.recall_num)) or not np.isfinite(fs).all():
+        raise AssertionError(f"4: fine pool shape {fs.shape} / non-finite")
+    med = {k: statistics.median(t[k] for t in ev.timings)
+           for k in ev.timings[0]}
+    emit(phase="4_evaluate", queries=n, batch=B, batches=len(ev.timings),
+         coarse=out.coarse, fine=out.fine,
+         ndoc_per_query=out.ndoc_per_query, nonempty_hit=out.nonempty_hit,
+         pool_filled=float((fi >= 0).mean()), **med,
+         queries_per_s=n / wall, launches=n_eval,
+         coarse_equals_plain_recomputation=True)
+
+    # 4b: result tsvs, written and read back
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: f"{tmp}/{k}.tsv" for k in ("coarse", "fine", "hn")}
+        write_result_files(out, gts, coarse_path=paths["coarse"],
+                           fine_path=paths["fine"], hardneg_path=paths["hn"],
+                           hard_neg_k=100)
+        _, _, clus = parse_result_tsv(paths["coarse"],
+                                      {"query": 0, "cluster": 1})
+        preds, _, _ = parse_result_tsv(paths["fine"], {"query": 0, "pred": 2})
+        hn, hn_s, _ = parse_result_tsv(paths["hn"], {"query": 0, "pred": 2,
+                                                     "score": 3})
+    want = [int((row >= 0).sum()) for row in fi]
+    if not (len(clus) == len(preds) == len(hn) == n
+            and [len(preds[q]) for q in queries] == want
+            and all(len(clus[q]) == icfg.num_return_sequences
+                    for q in queries)
+            and [len(hn[q]) for q in queries] == [min(w, 100) for w in want]
+            and all(len(hn_s[q]) == len(hn[q]) for q in queries)):
+        raise AssertionError("4: result tsvs do not read back")
+    emit(phase="4_result_tsvs", rows=n, fine_ids=int(sum(want)))
+
+    # 4c: host streaming over a host copy of the int8 corpus, against the
+    # device reranker over the same int8 index with the same window
+    # contract (unaligned, clusters cut at cap: HostStreamFineReranker's)
+    emit(phase="4_host_memory", free_g=free_g())
+    t0 = time.perf_counter()
+    host_i8 = semb_i8.cpu()
+    copy_s = time.perf_counter() - t0
+    index8 = index._replace(sorted_emb=semb_i8)
+    index8_host = FineIndex(torch.from_numpy(offsets), torch.from_numpy(
+        doc_ids), host_i8, cfg["levels"], cfg["kary"], host_offsets=offsets,
+        host_doc_ids=doc_ids)
+    inv = 1.0 / scale
+
+    def rep8(i, m):       # int8 scores calibrated: 1/scale in the query
+        return qtower.first_token_rep(i, m) * inv
+    m = cfg["stream_queries"]
+    ev_hs = Evaluator(nci, icfg, fine_index=index8_host, query_rep_fn=rep8,
+                      doc_codes=doc_codes, host_stream=True, device=dev)
+    out_hs = ev_hs.evaluate(queries[:m], ids[:m], mask[:m], gts[:m],
+                            batch_size=m, keep_results=True)
+    hs_ms = ev_hs.timings[-1]
+    dev_rr = FineReranker(index8, icfg.max_cluster_docs,
+                          max(icfg.recall_num), overflow="truncate",
+                          align=1, device=dev)
+    codes_hs = np.concatenate([r.beam_codes for r in out_hs.results])
+    with torch.inference_mode():
+        qemb = rep8(torch.from_numpy(ids[:m]).to(dev),
+                    torch.from_numpy(mask[:m]).to(dev))
+    ds, di, dn = dev_rr(qemb, codes_hs)
+    hs_s, hs_i = pools_of(out_hs.results)
+    err, n_sep = compare_pools("4_host_stream", (torch.from_numpy(hs_s),
+                                                 torch.from_numpy(hs_i)),
+                               (torch.from_numpy(ds), torch.from_numpy(di)))
+    emit(phase="4_host_stream", queries=m, host_copy_s=copy_s,
+         host_stream_ms=hs_ms, max_abs_pool_err=err, ids_compared=n_sep,
+         pool_filled=float((hs_i >= 0).mean()),
+         ndoc_equal=bool((np.concatenate([r.ndoc for r in out_hs.results])
+                          == dn).all()))
+
+    # 4d: eval_all_documents, device scan vs host-streamed scan (one batch)
+    acfg = InferConfig(eval_all_documents=True)
+    res = {}
+    for tag, fidx, hs in (("device", index8, False),
+                          ("host_stream", index8_host, True)):
+        ev_a = Evaluator(nci, acfg, fine_index=fidx, query_rep_fn=rep8,
+                         doc_codes=doc_codes, host_stream=hs, device=dev)
+        res[tag] = (ev_a.run_batch(queries[:B], ids[:B], mask[:B]),
+                    ev_a.timings[-1])
+    (rd, td), (rh, th) = res["device"], res["host_stream"]
+    err_a, n_sep_a = compare_pools(
+        "4_eval_all", (torch.from_numpy(rd.fine_scores),
+                       torch.from_numpy(rd.fine_ids)),
+        (torch.from_numpy(rh.fine_scores), torch.from_numpy(rh.fine_ids)))
+    emit(phase="4_eval_all_documents", queries=B, device_ms=td,
+         host_stream_ms=th, max_abs_pool_err=err_a, ids_compared=n_sep_a)
+    return n_eval
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -377,6 +656,7 @@ def run(cfg, seed):
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.build import quantize_int8
     from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.scripts import profile_bucket
     from mevi_tpu_torch.serve import BucketServer
 
     dev = torch.device("cuda")
@@ -412,9 +692,18 @@ def run(cfg, seed):
         device=dev).manual_seed(seed + 3), device=dev).to(torch.bfloat16)
     p1 = check_kernel("bf16", semb, off_d, cidx, q, cfg["cap"], dev,
                       cfg["kernel_reps"])
-    check_kernel("int8", semb_i8, off_d, cidx,
-                 (q.float() / scale).to(torch.bfloat16), cfg["cap"], dev,
+    q8 = (q.float() / scale).to(torch.bfloat16)
+    check_kernel("int8", semb_i8, off_d, cidx, q8, cfg["cap"], dev,
                  cfg["kernel_reps"])
+    # the v2 kernel's path: the A/B entry point, over the int8 corpus
+    reset_counts()
+    prof = profile_bucket.profile(semb_i8, off_d, cidx, q8, cfg["cap"],
+                                  reps=cfg["profile_reps"], device=dev)
+    n_profile = read_counts()
+    if n_profile["v2"] == 0:
+        raise AssertionError("1: profile_bucket never launched v2")
+    emit(phase="1_profile_bucket", corpus="int8", G=G, cap=cfg["cap"],
+         reps=cfg["profile_reps"], launches=n_profile, **prof)
 
     # ---- phase 2 -------------------------------------------------------
     t0 = time.perf_counter()
@@ -448,8 +737,7 @@ def run(cfg, seed):
     own = batches(False)
     over = batches(True)
     # main path: set every count to 0, drive it, read the counts
-    B.bucket_scores_v3.launches = 0
-    B.bucket_scores_fused.launches = 0
+    reset_counts()
     n_own, _ = run_path("2_own_codes", server, own, cfg,
                         B.bucket_scores_v3)
     n_over, last = run_path("2_cidx_override", server, over, cfg,
@@ -467,45 +755,56 @@ def run(cfg, seed):
 
     # fused mode of the same kernel, its own path and count
     fused = BucketServer(qtower, nci, index, bucket_kernel="fused", **kw)
-    B.bucket_scores_fused.launches = 0
+    reset_counts()
     n_fused, flast = run_path("2_fused", fused, over[:cfg["warmup"] + 2],
                               cfg, B.bucket_scores_fused)
     agree("2_fused vs v3", flast[3],
           server.finalize(server.query_device(*flast[:3])))
+    del fused
+
+    # ---- phase 2b: the raw-score path on the last override batch --------
+    n_raw = raw_path(server, cidx_l, q_rep, (ts, tr), Bq, dev)
 
     # ---- phase 3: int8 corpus ------------------------------------------
-    del fused
     index8 = index._replace(sorted_emb=semb_i8)
     server8 = BucketServer(qtower, nci, index8, inv_scale=1.0 / scale, **kw)
     cfg3 = dict(cfg, warmup=1, timed=1)
+    reset_counts()
     n_int8, last8 = run_path("3_int8", server8, over[:2], cfg3,
                              B.bucket_scores_v3)
-    ids, m, ov, out8, (cidx8, q8, ts8, tr8) = last8
+    ids, m, ov, out8, (cidx8, q8s, ts8, tr8) = last8
     err8, n_sep8 = compare_pools("3_plain", (ts8, tr8),
-                                 pool_with_plain(server8, cidx8, q8, Bq))
+                                 pool_with_plain(server8, cidx8, q8s, Bq))
     ref16 = server.finalize(server.query_device(ids, m, ov))
     top1 = float((ref16[1][:, 0] == out8[1][:, 0]).mean())
     emit(phase="3_int8_check", int8_scale=scale, max_abs_pool_err=err8,
          ids_compared=n_sep8, top1_agree_with_bf16=top1,
          corpus_gb=semb_i8.numel() / 1e9)
+    del server8
+
+    # ---- phase 4: offline evaluation -----------------------------------
+    n_eval = eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8, scale,
+                        doc_cluster, offsets, doc_ids)
+    emit(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     kernels = []
-    for mode, rep, launches in (
-            ("v3", "mevi_tpu/ops/bucket.py:297 (_kernel_v3; "
-                   "pallas_call :366)", main_launches),
-            ("fused", "mevi_tpu/ops/bucket.py:93 (_fused_kernel; "
-                      "pallas_call :196)", n_fused)):
+    paths = {"v3": main_launches, "fused": n_fused, "v2": n_profile["v2"],
+             "raw": n_raw}
+    for mode in ("v3", "fused", "v2", "raw"):
         r = p1[mode]
-        kernels.append({
-            "name": f"bucket_scores_{mode}", "route": "cuda",
-            "source": KERNEL_SRC, "replaces": rep, "launches": launches,
+        entry = {
+            "name": WRAPPER[mode], "route": "cuda", "source": KERNEL_SRC,
+            "replaces": REPLACES[mode], "launches": paths[mode],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "yardstick_ms": r["yardstick_ms"],
-            "bound_ms_full_window": r["bound_ms_full_window"],
-            "bound_ms_valid_rows": r["bound_ms_valid_rows"]})
-    emit(total_s=time.perf_counter() - t_start, int8_launches=n_int8)
+            "bound_ms_full_window": r["bound_ms_full_window"]}
+        if "bound_ms_valid_rows" in r:
+            entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
+        kernels.append(entry)
+    emit(total_s=time.perf_counter() - t_start, int8_launches=n_int8,
+         eval_launches=n_eval)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,129 @@
+"""File contracts shared with the reference data pipeline (the port's
+copy of the query/gt and result-tsv parts of ``mevi_tpu.data.io``; the
+token and embedding memmaps and packed queries come with slice E).
+
+* ``dev_mevi_dedup.tsv`` / ``qg{n}.tsv`` — ``query \\t docid[,docid...]``
+  (``MEVI/main_utils.py:235-291``).
+* result tsvs: coarse ``(query, clusters, gts, scores)``, fine
+  ``(query, ndoc, docids, gts)``, hard-neg ``(query, gt_scores, docids,
+  scores)`` (``MEVI/main_models.py:4227-4235``, parsed by
+  ``ensemble_marco.py:92-111,164-166``).
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+
+# --------------------------------------------------------------------------
+# query/gt tsvs
+# --------------------------------------------------------------------------
+
+def read_query_docids_tsv(path: str) -> List[Tuple[str, List[int]]]:
+    """Read ``query \\t docid[,docid...]`` rows (train or dev format)."""
+    rows = []
+    with open(path, "r", encoding="utf-8") as fr:
+        for line in fr:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            parts = line.split("\t")
+            query, ids = parts[0], parts[-1]
+            rows.append((query, [int(x) for x in ids.split(",") if x != ""]))
+    return rows
+
+
+def write_query_docids_tsv(path: str,
+                           rows: Iterable[Tuple[str, Sequence[int]]]) -> None:
+    with open(path, "w", encoding="utf-8") as fw:
+        for query, ids in rows:
+            fw.write(f"{query}\t{','.join(str(i) for i in ids)}\n")
+
+
+def read_gt_dict(path: str) -> Dict[str, List[int]]:
+    """Ground-truth dict keyed by query text (ensemble gt_template:
+    ``ensemble_marco.py:164`` uses columns (0, -1))."""
+    return dict(read_query_docids_tsv(path))
+
+
+
+# --------------------------------------------------------------------------
+# result tsvs (ensemble input contracts)
+# --------------------------------------------------------------------------
+
+def _fmt_list(x) -> str:
+    return str(list(x))
+
+
+def write_coarse_results(path: str, rows: Iterable[tuple]) -> None:
+    """Rows: (query, clusters[List[List[int]]], gts[List], scores[List])."""
+    with open(path, "w", encoding="utf-8") as fw:
+        for query, clusters, gts, scores in rows:
+            fw.write("\t".join([
+                query, _fmt_list([list(c) for c in clusters]),
+                _fmt_list(gts), _fmt_list([float(s) for s in scores]),
+            ]) + "\n")
+
+
+def write_fine_results(path: str, rows: Iterable[tuple]) -> None:
+    """Rows: (query, ndoc, docids[List[int]], gts[List[int]]).
+
+    Column layout matches the ensemble fine_template {query:0, pred:2,
+    score:3} when scores are appended by hard-neg rows; the plain fine tsv
+    in the reference is (query, result_docs, gts) at pred index 2 via a
+    leading ndoc column.
+    """
+    with open(path, "w", encoding="utf-8") as fw:
+        for query, ndoc, docids, gts in rows:
+            fw.write("\t".join([
+                query, str(ndoc), _fmt_list(docids), _fmt_list(gts),
+            ]) + "\n")
+
+
+def write_hardneg_results(path: str, rows: Iterable[tuple]) -> None:
+    """Rows: (query, gt_scores[List[float]], docids, scores) — the
+    full-corpus-scan dump consumed as the ensemble 'fine_file'
+    (``main_models.py:3901-3908``, template pred:2 score:3)."""
+    with open(path, "w", encoding="utf-8") as fw:
+        for query, gt_scores, docids, scores in rows:
+            fw.write("\t".join([
+                query,
+                ",".join(str(float(s)) for s in gt_scores),
+                ",".join(str(int(d)) for d in docids),
+                ",".join(str(float(s)) for s in scores),
+            ]) + "\n")
+
+
+def parse_result_tsv(path: str, template: Dict[str, int]) -> tuple:
+    """Parse a result tsv with a column template, mirroring
+    ``ensemble_marco.py:92-111`` (keys: query/pred/score/cluster).
+
+    List columns accept either python-literal lists or comma-joined values.
+    """
+    qind = template["query"]
+    pind = template.get("pred")
+    sind = template.get("score")
+    cind = template.get("cluster")
+    preds, scores, clusters = {}, {}, {}
+
+    def eval_list(item: str):
+        item = item.strip()
+        if not item.startswith("["):
+            item = f"[{item}]"
+        return ast.literal_eval(item)
+
+    with open(path, "r", encoding="utf-8") as fr:
+        for line in fr:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            items = line.split("\t")
+            q = items[qind]
+            if pind is not None:
+                preds[q] = eval_list(items[pind])
+            if sind is not None:
+                scores[q] = eval_list(items[sind])
+            if cind is not None:
+                clusters[q] = eval_list(items[cind])
+    return preds, scores, clusters

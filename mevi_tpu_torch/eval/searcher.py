@@ -16,7 +16,8 @@ import torch
 
 from .. import resolve_device
 from ..index.csr import build_csr, pack_codes
-from ..ops.bucket import ALIGN, bucket_scores_fused, bucket_scores_v3
+from ..ops.bucket import (ALIGN, bucket_scores, bucket_scores_fused,
+                          bucket_scores_v3)
 from ..ops.mips import mips_topk
 from ..ops.topk import NEG_INF, topk_stable
 
@@ -215,3 +216,62 @@ class FineReranker:
             top_scores, top_ids = self._scan_overflow(
                 query_emb, top_scores, top_ids, over)
         return top_scores, top_ids, sizes_h.sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# the raw-score path: v1 kernel -> mask -> per-query pool
+# ---------------------------------------------------------------------------
+
+def bucket_scores_dispatch(sorted_emb, starts_aligned, query_emb, cap: int,
+                           device="cuda"):
+    """Raw (G, cap) bucket scores from aligned window starts: the v1
+    CUDA kernel for tensors on the card, its plain version on the CPU
+    (``ops.bucket.bucket_scores`` chooses by ``device``)."""
+    return bucket_scores(sorted_emb, starts_aligned, query_emb, cap,
+                         device=device)
+
+
+@torch.inference_mode()
+def mask_pool_topk(scores, starts_aligned, bucket_start, bucket_end,
+                   cap: int, pool: int, nq: int, per_query: int):
+    """Mask raw scores to the true bucket bounds and pool each query's
+    top-k.
+
+    Slot j of bucket g holds CSR row ``starts_aligned[g] + j``; valid iff
+    that row lies in [bucket_start, bucket_end).  The first
+    ``nq * per_query`` buckets are real (the rest is padding).  Returns
+    (top scores (nq, pool), top CSR rows (nq, pool), -1 invalid); stable
+    selection, so ties keep the lower slot first as ``lax.top_k`` does.
+    """
+    pos = torch.arange(cap, device=scores.device)
+    rows = starts_aligned.long()[:, None] + pos
+    ok = ((rows >= bucket_start.long()[:, None])
+          & (rows < bucket_end.long()[:, None]))
+    g_real = nq * per_query
+    sc = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+    sc = sc[:g_real].reshape(nq, -1)
+    rw = torch.where(ok, rows, torch.full_like(rows, -1))[:g_real]
+    rw = rw.reshape(nq, -1)
+    top_scores, posn = topk_stable(sc, min(pool, sc.shape[-1]))
+    top_rows = torch.gather(rw, -1, posn)
+    top_rows = torch.where(top_scores <= NEG_INF / 2,
+                           torch.full_like(top_rows, -1), top_rows)
+    return top_scores, top_rows.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# coarse metrics helper
+# ---------------------------------------------------------------------------
+
+def coarse_ranks(beam_codes: np.ndarray, gt_codes: np.ndarray,
+                 kary: int) -> np.ndarray:
+    """Rank of each gt doc's cluster in the beam list, -1 if absent.
+
+    beam_codes (B, nb, M); gt_codes (B, max_gt, M) with -1 padding
+    (``main_models.py:3772-3774``)."""
+    beam_idx = pack_codes(np.asarray(beam_codes), kary)       # (B, nb)
+    gt_valid = np.asarray(gt_codes)[..., 0] >= 0
+    gt_idx = pack_codes(np.maximum(np.asarray(gt_codes), 0), kary)
+    eq = gt_idx[:, :, None] == beam_idx[:, None, :]
+    eq &= gt_valid[:, :, None]
+    return np.where(eq.any(-1), eq.argmax(-1), -1)

@@ -1,23 +1,32 @@
 """CSR bucket scorer: the fine-rerank hot path (port of
 ``mevi_tpu.ops.bucket``).
 
-Replaces the TPU kernels ``mevi_tpu/ops/bucket.py::_kernel_v3``
-(``bucket_scores_v3``, bounds given) and ``::_fused_kernel``
-(``bucket_scores_fused``, bounds looked up from the CSR offsets) with one
-hand-written CUDA kernel for sm_90a, ``csrc/bucket.cu``, in two modes.
+Replaces the four TPU kernels of ``mevi_tpu/ops/bucket.py`` with
+hand-written CUDA for sm_90a in ``csrc/bucket.cu``:
 
-Contract (both modes): for G (query, beam) buckets with CSR bounds
-``[s, e)`` and window start ``al = floor(s / align) * align``,
+* ``_kernel_v3`` (``bucket_scores_v3``, bounds given) and
+  ``_fused_kernel`` (``bucket_scores_fused``, bounds looked up from the
+  CSR offsets): one kernel in two bounds modes;
+* ``_kernel_v2`` (``bucket_scores_v2``): v3's contract through a
+  2-stage ``cp.async`` pipeline over tiles of each bucket's valid rows;
+* ``_kernel`` (``bucket_scores``, v1): raw unmasked window scores from
+  given starts, the first kernel's third mode.
+
+Masked contract (v3, fused, v2): for G (query, beam) buckets with CSR
+bounds ``[s, e)`` and window start ``al = floor(s / align) * align``,
 ``scores[g, j] = q[g] . semb[al + j]`` (float32 accumulation) where
 ``s <= al + j < e`` and ``-1e30`` elsewhere; ``rows[g, j] = al + j`` or
 -1.  ``align=8`` is the TPU contract (the JAX server's outputs);
 ``align=1`` is ``eval.searcher._beam_scores``'s ``[s, s + cap)`` window.
+Raw contract (v1): ``scores[g, j] = q[g] . semb[min(start_g + j, N - 1)]``
+for every ``j < cap``, as ``bucket_scores_reference``; the caller masks.
 
 Bound on an H100: a gather-GEMV at 2 flops per corpus element read, so
-device memory bandwidth.  The kernel reads only the rows inside each
-bucket (``sum_g valid_g * d * itemsize`` bytes), never the full
-``G * cap * d`` window, and needs no slack rows past the last real row.
-See the source note in ``csrc/bucket.cu`` for the design.
+device memory bandwidth.  The masked kernels read only the rows inside
+each bucket (``sum_g valid_g * d * itemsize`` bytes), never the full
+``G * cap * d`` window, and need no slack rows past the last real row;
+the raw kernel reads the whole clipped window.  See the source note in
+``csrc/bucket.cu`` for the designs.
 
 A wrapper takes the plain PyTorch version below only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper
@@ -86,6 +95,30 @@ def bucket_scores_fused_plain(semb, offsets, cidx, qemb, cap: int,
                                   cap, align)
 
 
+# v2 computes v3's function (the JAX oracle of both is
+# ``bucket_scores_v2_reference``)
+bucket_scores_v2_plain = bucket_scores_v3_plain
+
+
+def bucket_scores_plain(semb, starts, qemb, cap: int):
+    """Raw (v1) oracle: mirrors ``bucket_scores_reference``, rows
+    ``start + j`` clipped to ``[0, N - 1]``, float32 einsum, no mask."""
+    rows = starts.long()[:, None] + torch.arange(cap, device=semb.device)
+    rows = rows.clamp(0, semb.shape[0] - 1)
+    scores = torch.empty(rows.shape, dtype=torch.float32, device=semb.device)
+    q = qemb.float()
+    for g0 in range(0, rows.shape[0], _PLAIN_CHUNK):
+        block = semb[rows[g0:g0 + _PLAIN_CHUNK]].float()   # (g, cap, d)
+        scores[g0:g0 + _PLAIN_CHUNK] = torch.einsum(
+            "gd,gcd->gc", q[g0:g0 + _PLAIN_CHUNK], block)
+    return scores
+
+
+def align_down(x, align: int = ALIGN):
+    """``floor(x / align) * align`` (numpy, torch or int)."""
+    return (x // align) * align
+
+
 # ---------------------------------------------------------------------------
 # the kernel: build, load, launch
 # ---------------------------------------------------------------------------
@@ -127,6 +160,12 @@ def build_kernel() -> KernelLibrary:
     lib.mevi_bucket_scores.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i,
                                        p, p, p]
     lib.mevi_bucket_scores.restype = i
+    lib.mevi_bucket_scores_raw.argtypes = [p, i, i, ctypes.c_longlong, p, p,
+                                           i, i, i, p, p]
+    lib.mevi_bucket_scores_raw.restype = i
+    lib.mevi_bucket_scores_v2.argtypes = [p, i, i, p, p, p, i, i, i, i, p,
+                                          p, p]
+    lib.mevi_bucket_scores_v2.restype = i
     lib.mevi_cuda_error_string.argtypes = [i]
     lib.mevi_cuda_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, path, secs, log)
@@ -157,26 +196,66 @@ def _check(semb, qemb, cap, align, index_tensors, device):
     return dev
 
 
-def _launch(semb, qemb, cap, align, starts=None, ends=None, offsets=None,
-            cidx=None):
+def _outputs(semb, qemb, cap, with_rows=True):
     if semb.data_ptr() % 16:
         raise ValueError("semb must be 16-byte aligned")
     G = qemb.shape[0]
     scores = torch.empty((G, cap), dtype=torch.float32, device=semb.device)
-    rows = torch.empty((G, cap), dtype=torch.int32, device=semb.device)
+    rows = (torch.empty((G, cap), dtype=torch.int32, device=semb.device)
+            if with_rows else None)
+    return G, scores, rows
+
+
+def _raise_on(lib, err):
+    if err:
+        raise RuntimeError("bucket kernel launch failed: "
+                           + lib.mevi_cuda_error_string(err).decode())
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(semb, qemb, cap, align, starts=None, ends=None, offsets=None,
+            cidx=None):
+    """v3 (``starts``/``ends``) or fused (``offsets``/``cidx``) mode."""
+    G, scores, rows = _outputs(semb, qemb, cap)
     if G == 0:
         return scores, rows
     lib = build_kernel().lib
     ptr = (lambda t: None if t is None else t.data_ptr())
-    err = lib.mevi_bucket_scores(
+    _raise_on(lib, lib.mevi_bucket_scores(
         semb.data_ptr(), _SEMB_CODES[semb.dtype], semb.shape[1],
         ptr(starts), ptr(ends), ptr(offsets), ptr(cidx), qemb.data_ptr(),
         _Q_CODES[qemb.dtype], G, cap, align, scores.data_ptr(),
-        rows.data_ptr(), torch.cuda.current_stream(semb.device).cuda_stream)
-    if err:
-        raise RuntimeError("bucket kernel launch failed: "
-                           + lib.mevi_cuda_error_string(err).decode())
+        rows.data_ptr(), _stream(semb)))
     return scores, rows
+
+
+def _launch_v2(semb, starts, ends, qemb, cap, align):
+    G, scores, rows = _outputs(semb, qemb, cap)
+    if G == 0:
+        return scores, rows
+    lib = build_kernel().lib
+    _raise_on(lib, lib.mevi_bucket_scores_v2(
+        semb.data_ptr(), _SEMB_CODES[semb.dtype], semb.shape[1],
+        starts.data_ptr(), ends.data_ptr(), qemb.data_ptr(),
+        _Q_CODES[qemb.dtype], G, cap, align, scores.data_ptr(),
+        rows.data_ptr(), _stream(semb)))
+    return scores, rows
+
+
+def _launch_raw(semb, starts, qemb, cap):
+    G, scores, _ = _outputs(semb, qemb, cap, with_rows=False)
+    if G == 0:
+        return scores
+    lib = build_kernel().lib
+    _raise_on(lib, lib.mevi_bucket_scores_raw(
+        semb.data_ptr(), _SEMB_CODES[semb.dtype], semb.shape[1],
+        semb.shape[0], starts.data_ptr(), qemb.data_ptr(),
+        _Q_CODES[qemb.dtype], G, cap, scores.data_ptr(), _stream(semb)))
+    return scores
+
 
 
 def bucket_scores_v3(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
@@ -185,6 +264,15 @@ def bucket_scores_v3(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
 
     semb (N, d) bf16/f32/int8; starts, ends (G,) int32; qemb (G, d)
     bf16/f32 -> (scores (G, cap) f32, rows (G, cap) int32)."""
+    dev = _check_bounds(semb, starts, ends, qemb, cap, align, device)
+    if dev.type == "cpu":
+        return bucket_scores_v3_plain(semb, starts, ends, qemb, cap, align)
+    out = _launch(semb, qemb, cap, align, starts=starts, ends=ends)
+    bucket_scores_v3.launches += 1
+    return out
+
+
+def _check_bounds(semb, starts, ends, qemb, cap, align, device):
     dev = _check(semb, qemb, cap, align,
                  [("starts", starts), ("ends", ends)], device)
     if starts.shape != ends.shape or starts.shape[0] != qemb.shape[0]:
@@ -194,10 +282,40 @@ def bucket_scores_v3(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
                                    (ends < starts).sum()]).tolist()
         if lo < 0 or hi > semb.shape[0] or bad:
             raise ValueError("bounds must satisfy 0 <= s <= e <= N")
+    return dev
+
+
+def bucket_scores_v2(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
+                     device="cuda"):
+    """Bucket scores from given CSR bounds through the pipelined kernel:
+    the contract, arguments and outputs of :func:`bucket_scores_v3`."""
+    dev = _check_bounds(semb, starts, ends, qemb, cap, align, device)
     if dev.type == "cpu":
-        return bucket_scores_v3_plain(semb, starts, ends, qemb, cap, align)
-    out = _launch(semb, qemb, cap, align, starts=starts, ends=ends)
-    bucket_scores_v3.launches += 1
+        return bucket_scores_v2_plain(semb, starts, ends, qemb, cap, align)
+    out = _launch_v2(semb, starts, ends, qemb, cap, align)
+    bucket_scores_v2.launches += 1
+    return out
+
+
+def bucket_scores(semb, starts, qemb, cap: int, device="cuda"):
+    """Raw (v1) bucket scores: ``scores[g, j] = q[g] . semb[min(starts[g]
+    + j, N - 1)]`` for every ``j < cap``, unmasked (the caller masks;
+    see ``eval.searcher.mask_pool_topk``).
+
+    semb (N, d) bf16/f32/int8; starts (G,) int32 in ``[0, N)`` (the
+    aligned window starts, ``align_down(bucket start)``); qemb (G, d)
+    bf16/f32 -> scores (G, cap) f32."""
+    dev = _check(semb, qemb, cap, 1, [("starts", starts)], device)
+    if starts.shape[0] != qemb.shape[0]:
+        raise ValueError("starts and qemb must have G rows")
+    if starts.numel():
+        lo, hi = torch.stack([starts.min(), starts.max()]).tolist()
+        if lo < 0 or hi >= semb.shape[0]:
+            raise ValueError("starts must lie in [0, N)")
+    if dev.type == "cpu":
+        return bucket_scores_plain(semb, starts, qemb, cap)
+    out = _launch_raw(semb, starts, qemb, cap)
+    bucket_scores.launches += 1
     return out
 
 
@@ -232,3 +350,5 @@ def bucket_scores_fused(semb, offsets, cidx, qemb, cap: int,
 
 bucket_scores_v3.launches = 0
 bucket_scores_fused.launches = 0
+bucket_scores_v2.launches = 0
+bucket_scores.launches = 0

@@ -58,13 +58,20 @@ def no_cuda():
 
 
 def _entry_points():
+    from mevi_tpu_torch.config import InferConfig
+    from mevi_tpu_torch.eval.run_eval import Evaluator
     from mevi_tpu_torch.eval.searcher import (FineIndex, FineReranker,
+                                              bucket_scores_dispatch,
                                               build_fine_index)
+    from mevi_tpu_torch.eval.streaming import (HostStreamFineReranker,
+                                               streaming_mips_topk)
+    from mevi_tpu_torch.index.csr import make_index
     from mevi_tpu_torch.models.nci import NCIDims, NCIT5
     from mevi_tpu_torch.models.pawa import PawaAdaptor, PawaDims
     from mevi_tpu_torch.models.t5 import T5Dims, T5Model
-    from mevi_tpu_torch.ops.bucket import (bucket_scores_fused,
-                                           bucket_scores_v3)
+    from mevi_tpu_torch.ops.bucket import (bucket_scores, bucket_scores_fused,
+                                           bucket_scores_v2, bucket_scores_v3)
+    from mevi_tpu_torch.scripts import profile_bucket
     from mevi_tpu_torch.serve import BucketServer
     t5 = T5Dims(vocab_size=16, d_model=8, d_kv=2, d_ff=8, num_heads=4,
                 num_layers=1, num_decoder_layers=1)
@@ -81,6 +88,11 @@ def _entry_points():
     def server(**kw):
         return BucketServer(T5Model(t5, device="cpu"),
                             NCIT5(nd, device="cpu"), index, **kw)
+
+    def evaluator(**kw):
+        return Evaluator(NCIT5(nd, device="cpu"), InferConfig(), index,
+                         **kw)
+    off = torch.tensor([0, 8, 8], dtype=torch.int32)
     return {
         "T5Model": lambda **kw: T5Model(t5, **kw),
         "NCIT5": lambda **kw: NCIT5(nd, **kw),
@@ -92,13 +104,29 @@ def _entry_points():
         "bucket_scores_v3": lambda **kw: bucket_scores_v3(semb, z, z, q, 4,
                                                           **kw),
         "bucket_scores_fused": lambda **kw: bucket_scores_fused(
-            semb, torch.tensor([0, 8, 8], dtype=torch.int32), z, q, 4, **kw),
+            semb, off, z, q, 4, **kw),
+        "bucket_scores_v2": lambda **kw: bucket_scores_v2(semb, z, z, q, 4,
+                                                          **kw),
+        "bucket_scores": lambda **kw: bucket_scores(semb, z, q, 4, **kw),
+        "bucket_scores_dispatch": lambda **kw: bucket_scores_dispatch(
+            semb, z, q, 4, **kw),
+        "streaming_mips_topk": lambda **kw: streaming_mips_topk(q, emb, 3,
+                                                                **kw),
+        "HostStreamFineReranker": lambda **kw: HostStreamFineReranker(
+            emb, off.numpy(), np.arange(8), 2, 4, 4, **kw),
+        "make_index": lambda **kw: make_index(codes, 2, **kw),
+        "Evaluator": evaluator,
+        "profile_bucket.profile": lambda **kw: profile_bucket.profile(
+            semb, off, z, q, 4, reps=1, **kw),
     }
 
 
 ENTRY_NAMES = ["T5Model", "NCIT5", "PawaAdaptor", "build_fine_index",
                "FineReranker", "BucketServer", "bucket_scores_v3",
-               "bucket_scores_fused"]
+               "bucket_scores_fused", "bucket_scores_v2", "bucket_scores",
+               "bucket_scores_dispatch", "streaming_mips_topk",
+               "HostStreamFineReranker", "make_index", "Evaluator",
+               "profile_bucket.profile"]
 
 
 @pytest.mark.parametrize("name", ENTRY_NAMES)
