@@ -30,7 +30,21 @@ Phases:
      bf16 index; coarse metrics against a plain recomputation; host
      streaming over a host copy of the int8 corpus against the device
      reranker; ``eval_all_documents`` on the device against the
-     host-streamed scan; the result tsvs written and read back.
+     host-streamed scan; the result tsvs written and read back;
+  5. the index build, after phases 1-4's corpus is freed:
+     ``build_rq_index`` of ``configs/marco_rq4x5.json`` (4 levels x 32,
+     l2, 25 Lloyd iterations, seed 42, bf16 serving copy) over
+     8,841,823 x 768 bf16 rows with RQ structure made on the device,
+     timed per level, with peak memory, size histogram and
+     reconstruction error; checks on the built index: (a) ``assign``
+     on 262,144 rows against the trained codes, (b) the CSR is a
+     permutation laid out by the codes, (c) ``doc_topk_codes`` (top 10)
+     on 65,536 rows, (d) ``adc_search`` of 512 queries at k 1000 over
+     the device one-hot matrix against a plain recompute, (e) one
+     ``BucketServer`` batch over the built index against the plain
+     pool; then the ``center_levels`` build (full width when it keeps
+     the phase under 300 s, else 1,048,576 rows) and (f)
+     ``hierarchical_kmeans_ids`` (k 30, c 30) on 65,536 rows.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels; the last line is
@@ -41,12 +55,14 @@ any phase fails.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -65,6 +81,11 @@ REPLACES = {
     "fused": "mevi_tpu/ops/bucket.py:93 (_fused_kernel; pallas_call :196)",
     "v2": "mevi_tpu/ops/bucket.py:206 (_kernel_v2; pallas_call :287)",
     "raw": "mevi_tpu/ops/bucket.py:41 (_kernel, v1; pallas_call :82)"}
+BUILD = dict(config="configs/marco_rq4x5.json", seed=42, iters=25,
+             noise=0.1, assign_rows=262_144, topk_rows=65_536, topk=10,
+             adc_queries=512, adc_k=1000, hier_rows=65_536, hier_k=30,
+             hier_c=30, hier_iters=10, center_budget_s=300.0,
+             center_reduced_rows=1_048_576)
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
 
@@ -641,36 +662,336 @@ def eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8, scale,
     return n_eval
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 2
-    return run(FULL, args.seed)
+# ---------------------------------------------------------------------------
+# phase 5: the RQ index build at full width
+# ---------------------------------------------------------------------------
+
+def make_structured_corpus(cfg, dev, seed):
+    """Rows with structure k-means can find, made on the device: four
+    random level codebooks (K x d, entries N(0, s_l^2 / d), s_l = 2^-l),
+    doc codes drawn as :func:`make_corpus` draws them (log-normal leaf
+    sizes), each row the sum of its four centroids plus N(0,
+    noise^2 / d) noise, stored bf16.  Returns (rows, true codes)."""
+    from mevi_tpu_torch.index.csr import unpack_codes
+    N, d, K, M = cfg["ndocs"], cfg["d"], cfg["kary"], cfg["levels"]
+    rng = np.random.default_rng(seed + 21)
+    active = rng.choice(K ** M, size=min(cfg["nonempty"], K ** M),
+                        replace=False)
+    w = rng.lognormal(0.0, cfg["sigma"], size=active.size)
+    doc_cluster = np.repeat(active, rng.multinomial(N, w / w.sum()))
+    rng.shuffle(doc_cluster)
+    codes = unpack_codes(doc_cluster, M, K)
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    books = [torch.randn((K, d), generator=g, device=dev) * (0.5 ** lvl)
+             * d ** -0.5 for lvl in range(M)]
+    codes_d = torch.from_numpy(codes).to(dev).long()
+    emb = torch.empty((N, d), dtype=torch.bfloat16, device=dev)
+    step = 1 << 18
+    for s in range(0, N, step):
+        c = codes_d[s:s + step]
+        x = torch.randn((c.shape[0], d), generator=g, device=dev).mul_(
+            BUILD["noise"] * d ** -0.5)
+        for lvl in range(M):
+            x += books[lvl][c[:, lvl]]
+        emb[s:s + c.shape[0]] = x.to(torch.bfloat16)
+    return emb, codes
 
 
-def run(cfg, seed):
+def check_csr(tag, arts, n):
+    """(b) The CSR is a permutation of arange(n) laid out by the codes:
+    offsets[-1] == n, offsets are the code counts' prefix sums, and the
+    rows' packed codes never decrease."""
+    from mevi_tpu_torch.index.csr import pack_codes
+    off = arts.fine.host_offsets.astype(np.int64)
+    ids = arts.fine.host_doc_ids
+    if off[-1] != n or len(ids) != n:
+        raise AssertionError(f"{tag}: offsets[-1] {off[-1]} != {n}")
+    if not (np.bincount(ids, minlength=n) == 1).all():
+        raise AssertionError(f"{tag}: doc ids are not a permutation")
+    packed = pack_codes(arts.codes, arts.fine.kary).astype(np.int64)
+    if not (np.diff(packed[ids]) >= 0).all() or not np.array_equal(
+            np.diff(off), np.bincount(packed, minlength=len(off) - 1)):
+        raise AssertionError(f"{tag}: CSR disagrees with the codes")
+
+
+def check_assign(tag, emb, arts, dev, rows):
+    """(a) ``assign`` with the built codebooks (and shift tables) on the
+    first ``rows`` rows against the codes ``rq_train`` returned: at most
+    0.1% of rows may differ, each only where the top two similarities of
+    its first differing level are within 1e-3 relative."""
+    from mevi_tpu_torch.ops.rq import assign_with_logits
+    cbs = torch.from_numpy(arts.codebooks).to(dev)
+    shift = (None if arts.prefix_shift is None else
+             [torch.from_numpy(t).to(dev) for t in arts.prefix_shift])
+    codes, logits = assign_with_logits(emb[:rows], cbs, "rq", "l2", shift)
+    ref = torch.from_numpy(arts.codes[:rows]).to(dev)
+    diff = codes != ref
+    bad = diff.any(-1).nonzero()[:, 0]
+    n_diff = int(bad.numel())
+    worst = 0.0
+    if n_diff:
+        lvl = diff[bad].int().argmax(-1)
+        top2 = logits[bad, lvl].topk(2, -1).values
+        rel = (top2[:, 0] - top2[:, 1]).abs() / top2[:, 0].abs().clamp_min(
+            1e-30)
+        worst = float(rel.max())
+    if n_diff > 0.001 * rows or worst >= 1e-3:
+        raise AssertionError(f"{tag}: {n_diff} of {rows} rows differ from "
+                             f"rq_train's codes (top-2 gap {worst:.3g})")
+    return {"rows": rows, "rows_differing": n_diff,
+            "max_rel_top2_gap_of_differing": worst}
+
+
+def adc_check(emb, arts, dev, seed):
+    """(d) ``adc_search`` of 512 queries at k 1000 over the device
+    one-hot matrix, timed; 8 queries' scores held against a plain
+    recompute over the reconstructed rows (float32, atol 1e-2), at the
+    returned ids and as the exact top-k."""
+    from mevi_tpu_torch.ops.adc import adc_search, fill_onehot_matrix
+    from mevi_tpu_torch.ops.rq import reconstruct
+    N = emb.shape[0]
+    K, nq, k, n8 = arts.fine.kary, BUILD["adc_queries"], BUILD["adc_k"], 8
+    t0 = time.perf_counter()
+    oh = fill_onehot_matrix(arts.codes, K, device=dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    pick = torch.randint(0, N, (nq,), generator=g, device=dev)
+    q = emb[pick].float() + 0.05 * emb.shape[1] ** -0.5 * torch.randn(
+        (nq, emb.shape[1]), generator=g, device=dev)
+    cbs = torch.from_numpy(arts.codebooks).to(dev).float()
+    adc_search(q[:n8], cbs, oh, k=k, device=dev)                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, ids = adc_search(q, cbs, oh, k=k, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.isfinite(scores).all() and (ids >= 0).all()
+            and (ids < N).all()):
+        raise AssertionError("5d: ADC scores non-finite or ids outside "
+                             "the corpus")
+    codes_d = torch.from_numpy(arts.codes).to(dev)
+    plain = torch.empty((n8, N), dtype=torch.float32, device=dev)
+    for s in range(0, N, 1 << 16):
+        plain[:, s:s + (1 << 16)] = q[:n8] @ reconstruct(
+            codes_d[s:s + (1 << 16)], cbs).T
+    at_ids = torch.gather(plain, 1, ids[:n8])
+    exact = plain.topk(k, -1).values
+    err_ids = float((scores[:n8] - at_ids).abs().max())
+    err_top = float((scores[:n8] - exact).abs().max())
+    if err_ids > 1e-2 or err_top > 1e-2:
+        raise AssertionError(f"5d: ADC scores off the plain recompute "
+                             f"({err_ids:.3g} at ids, {err_top:.3g} top-k)")
+    return {"queries": nq, "k": k, "onehot_fill_s": fill_s,
+            "onehot_gb": oh.numel() / 1e9, "search_ms": ms,
+            "queries_per_s": nq / (ms * 1e-3),
+            "max_abs_err_at_ids": err_ids, "max_abs_err_topk": err_top}
+
+
+def serve_built(cfg, seed, dev, qtower, nci, arts):
+    """(e) One ``BucketServer`` batch of 512 over the built fine index,
+    doc-weighted ``cidx_override``; its pool held against the plain
+    bucket recomputation.  Returns the v3 kernel's launches on it."""
+    from mevi_tpu_torch.index.csr import pack_codes
+    from mevi_tpu_torch.serve import BucketServer
+    server = BucketServer(qtower, nci, arts.fine, num_beams=cfg["beams"],
+                          cap=cfg["cap"], pool=cfg["pool"],
+                          length_penalty=cfg["length_penalty"], device=dev)
+    rng = np.random.default_rng(seed + 41)
+    B, G = cfg["batch"], cfg["batch"] * cfg["beams"]
+    ids = torch.from_numpy(rng.integers(2, cfg["vocab"], size=(
+        B, cfg["qlen"])).astype(np.int32)).to(dev)
+    mask = torch.ones_like(ids)
+    ov = torch.from_numpy(pack_codes(arts.codes[rng.integers(
+        0, len(arts.codes), G)], arts.fine.kary)).to(dev)
+    server.finalize(server.query_device(ids, mask, ov))         # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, out, (cidx, q_rep, ts, tr) = serve_stages(server, ids, mask, ov)
+    n = read_counts()
+    if n["v3"] == 0:
+        raise AssertionError("5e: the v3 kernel never launched")
+    err, n_sep = compare_pools("5e_plain", (ts, tr),
+                               pool_with_plain(server, cidx, q_rep, B))
+    fill, ndoc = check_outputs("5e_serve", out, cfg, B)
+    emit(phase="5e_serve_built_index", batch=B, **ms, launches=n,
+         max_abs_pool_err=err, ids_compared=n_sep, pool_filled=fill,
+         ndoc_per_query=ndoc,
+         cluster_sizes=cluster_stats(arts.fine.host_offsets, cfg["cap"]))
+    return n["v3"]
+
+
+def profile_lloyd(emb, arts, dev):
+    """One Lloyd iteration (assignment + statistics pass over every row)
+    with level 0's codebook, under ``torch.profiler``: wall and
+    device-busy ms, top device kernels, and its bound (two reads of the
+    corpus at the HBM rate)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mevi_tpu_torch.ops.kmeans import kmeans_assign, kmeans_stats
+    c = torch.from_numpy(arts.codebooks[0]).to(dev)
+    kmeans_stats(emb[:1 << 16], kmeans_assign(emb[:1 << 16], c), c.shape[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kmeans_stats(emb, kmeans_assign(emb, c), c.shape[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in kern)
+    nbytes = 2 * emb.numel() * emb.element_size()
+    emit(phase="5_profile_lloyd_iteration", wall_ms=wall,
+         device_busy_ms=busy, idle_share=1.0 - busy / wall,
+         bound_ms=bound_ms(nbytes, 2 * 2.0 * emb.numel() * c.shape[0]),
+         device_kernels=sum(r[2] for r in kern),
+         top=[{"kernel": k[:90], "ms": ms, "calls": n}
+              for k, ms, n in kern[:8]])
+
+
+def build_once(tag, cfg5, emb, dev):
+    """``build_rq_index`` at the configuration's widths, timed per level,
+    with peak device memory, the CSR's size histogram, the
+    reconstruction error and the CSR check (b)."""
+    from mevi_tpu_torch.index.build import build_rq_index
+    from mevi_tpu_torch.index.csr import size_histogram
+    from mevi_tpu_torch.ops.rq import reconstruction_mse
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    levels = []
+    t0 = time.perf_counter()
+    arts = build_rq_index(cfg5, emb, seed=BUILD["seed"],
+                          iters=BUILD["iters"], serving_dtype=torch.bfloat16,
+                          level_stats=levels, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_csr(tag, arts, emb.shape[0])
+    codes_d = torch.from_numpy(arts.codes).to(dev)
+    cbs = torch.from_numpy(arts.codebooks).to(dev)
+    mse = {"reconstruction_mse": float(reconstruction_mse(emb, codes_d, cbs))}
+    if arts.prefix_shift is not None:
+        mse["reconstruction_mse_without_shift"] = mse["reconstruction_mse"]
+        mse["reconstruction_mse"] = float(reconstruction_mse(
+            emb, codes_d, cbs, prefix_shift=[torch.from_numpy(t).to(dev)
+                                             for t in arts.prefix_shift]))
+    emit(phase=tag, rows=int(emb.shape[0]), d=int(emb.shape[1]),
+         levels=cfg5.rq.subvector_num, kary=cfg5.rq.kary,
+         dist_mode=cfg5.rq.dist_mode, center_levels=cfg5.rq.center_levels,
+         iters=BUILD["iters"], seed=BUILD["seed"], per_level=levels,
+         build_s=build_s, peak_device_gb=peak,
+         size_histogram=size_histogram(arts.fine.host_offsets),
+         csr_is_permutation=True, **mse)
+    return arts, build_s
+
+
+def build_phase(cfg, seed, dev, qtower, nci):
+    """Phase 5: ``build_rq_index`` of ``configs/marco_rq4x5.json`` over
+    the structured corpus, checks (a)-(e) on the built index, the
+    ``center_levels`` build, and (f) hierarchical ids.  Returns the v3
+    kernel's launches on the served batch."""
+    import dataclasses
+    from mevi_tpu_torch.cli.main import load_config
+    from mevi_tpu_torch.index.build import doc_topk_codes
+    from mevi_tpu_torch.index.hierarchical import hierarchical_kmeans_ids
+    from mevi_tpu_torch.ops.rq import beam_search
+    t_phase = time.perf_counter()
+    cfg5 = load_config(str(Path(__file__).resolve().parent / BUILD["config"]))
+    if (cfg5.rq.subvector_num, cfg5.rq.kary, cfg5.rq.emb_size) != (
+            cfg["levels"], cfg["kary"], cfg["d"]):
+        raise AssertionError("5: the config's geometry is not the corpus'")
+    t0 = time.perf_counter()
+    emb, true_codes = make_structured_corpus(cfg, dev, seed)
+    torch.cuda.synchronize()
+    emit(phase="5_corpus", rows=int(emb.shape[0]), d=int(emb.shape[1]),
+         corpus_gb=emb.numel() * 2 / 1e9, setup_s=time.perf_counter() - t0,
+         allocated_gb_before=torch.cuda.memory_allocated() / 1e9)
+
+    arts, build_s = build_once("5_build", cfg5, emb, dev)
+    profile_lloyd(emb, arts, dev)
+    emit(phase="5a_assign", **check_assign("5a", emb, arts, dev,
+                                           BUILD["assign_rows"]))
+    # (c) per-doc top-k codes by the codebook beam
+    rows, topk = BUILD["topk_rows"], BUILD["topk"]
+    t0 = time.perf_counter()
+    tk_codes = doc_topk_codes(cfg5, emb[:rows], arts.codebooks, topk,
+                              device=dev)
+    topk_s = time.perf_counter() - t0
+    bc, bs = beam_search(emb[:rows], torch.from_numpy(arts.codebooks).to(
+        dev), topk, "rq", cfg5.rq.dist_mode, cfg5.rq.rq_topk_score)
+    if not np.array_equal(bc.cpu().numpy(), tk_codes):
+        raise AssertionError("5c: doc_topk_codes differs from beam_search")
+    if not ((bs > 0).all() and (bs <= 1).all()
+            and (bs[:, 1:] <= bs[:, :-1]).all()):
+        raise AssertionError("5c: beam scores outside (0, 1] or increasing")
+    top1 = float((tk_codes[:, 0] == arts.codes[:rows]).all(-1).mean())
+    emit(phase="5c_doc_topk_codes", rows=rows, topk=topk, seconds=topk_s,
+         top1_equals_assignment=top1,
+         min_score=float(bs.min()), max_score=float(bs.max()))
+    emit(phase="5d_adc", **adc_check(emb, arts, dev, seed))
+    n_build = serve_built(cfg, seed, dev, qtower, nci, arts)
+    # how much of the generating level-0 structure the build found: the
+    # share of docs in their built level-0 cluster's majority true code
+    K = cfg["kary"]
+    table = np.bincount(arts.codes[:, 0].astype(np.int64) * K
+                        + true_codes[:, 0], minlength=K * K).reshape(K, K)
+    purity = float(table.max(1).sum() / len(true_codes))
+    del arts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the center_levels build (scripts/quality_full.py's path): full
+    # width if it is expected to keep phase 5 under its budget
+    full = (time.perf_counter() - t_phase + 1.5 * build_s
+            < BUILD["center_budget_s"])
+    n_c = emb.shape[0] if full else BUILD["center_reduced_rows"]
+    cfg_c = dataclasses.replace(cfg5, rq=dataclasses.replace(
+        cfg5.rq, center_levels=True))
+    arts_c, _ = build_once("5_build_center_levels" if full else
+                           "5_build_center_levels_reduced_rows", cfg_c,
+                           emb[:n_c], dev)
+    emit(phase="5a_assign_center_levels", reduced=not full,
+         **check_assign("5a_center", emb, arts_c, dev,
+                        min(BUILD["assign_rows"], n_c)))
+    del arts_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) hierarchical k-means ids, reduced: the full corpus means some
+    # 10^4 k-means calls from the host
+    n_h = BUILD["hier_rows"]
+    t0 = time.perf_counter()
+    ids = hierarchical_kmeans_ids(emb[:n_h], k=BUILD["hier_k"],
+                                  c=BUILD["hier_c"], iters=BUILD["hier_iters"],
+                                  device=dev)
+    hier_s = time.perf_counter() - t0
+    if len(ids) != n_h or len({tuple(s) for s in ids}) != n_h or \
+            min(len(s) for s in ids) < 1:
+        raise AssertionError("5f: hierarchical ids not unique / not covering")
+    lens = [len(s) for s in ids]
+    emit(phase="5f_hierarchical_ids", rows=n_h, k=BUILD["hier_k"],
+         c=BUILD["hier_c"], iters=BUILD["hier_iters"], seconds=hier_s,
+         max_len=max(lens), mean_len=sum(lens) / n_h, reduced=True)
+    emit(phase="5_done", seconds=time.perf_counter() - t_phase,
+         level0_purity=purity,
+         center_levels_rows=n_c, center_levels_reduced=not full,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return n_build
+
+
+def serve_phases(cfg, seed, dev):
+    """Phases 1-4 over the corpus of :func:`make_corpus`.  Returns
+    (phase-1 results, launches of each kernel on its path, int8 and
+    evaluation launches, (qtower, nci)); the corpus, its int8 copy and
+    the servers are freed on return."""
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.build import quantize_int8
     from mevi_tpu_torch.ops import bucket as B
     from mevi_tpu_torch.scripts import profile_bucket
     from mevi_tpu_torch.serve import BucketServer
-
-    dev = torch.device("cuda")
-    # float32 matmuls stay float32 (no TF32), stated and set explicitly
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    print(card_line(), flush=True)
-    emit(torch=torch.__version__, cuda=torch.version.cuda,
-         device=torch.cuda.get_device_name(0))
-    k = B.build_kernel()
-    emit(kernel_build_s=k.build_seconds, library=k.path.name,
-         ptxas=sorted({ln.strip() for ln in k.build_log.splitlines()
-                       if "registers" in ln or "spill" in ln}))
 
     # ---- data ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -787,9 +1108,32 @@ def run(cfg, seed):
                         doc_cluster, offsets, doc_ids)
     emit(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
 
-    kernels = []
     paths = {"v3": main_launches, "fused": n_fused, "v2": n_profile["v2"],
              "raw": n_raw}
+    return p1, paths, n_int8, n_eval, (qtower, nci)
+
+
+def run(cfg, seed):
+    from mevi_tpu_torch.ops import bucket as B
+
+    dev = torch.device("cuda")
+    # float32 matmuls stay float32 (no TF32), stated and set explicitly
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    print(card_line(), flush=True)
+    emit(torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0))
+    k = B.build_kernel()
+    emit(kernel_build_s=k.build_seconds, library=k.path.name,
+         ptxas=sorted({ln.strip() for ln in k.build_log.splitlines()
+                       if "registers" in ln or "spill" in ln}))
+    p1, paths, n_int8, n_eval, models = serve_phases(cfg, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_build = build_phase(cfg, seed, dev, *models)
+
+    kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
         r = p1[mode]
         entry = {
@@ -802,6 +1146,10 @@ def run(cfg, seed):
             "bound_ms_full_window": r["bound_ms_full_window"]}
         if "bound_ms_valid_rows" in r:
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
+        if mode == "v3":
+            entry["launches"] += n_build
+            entry["launches_by_path"] = {"serve": paths["v3"],
+                                         "index_build_serve": n_build}
         kernels.append(entry)
     emit(total_s=time.perf_counter() - t_start, int8_launches=n_int8,
          eval_launches=n_eval)
@@ -811,6 +1159,17 @@ def run(cfg, seed):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    return run(FULL, args.seed)
 
 
 if __name__ == "__main__":

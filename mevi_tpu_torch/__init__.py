@@ -9,6 +9,7 @@ passes ``device="cpu"`` (what the CPU tests do).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,20 @@ def resolve_device(device="cuda") -> torch.device:
             "mevi_tpu_torch: CUDA is not available; pass device='cpu' "
             "to run on the CPU")
     return dev
+
+
+def as_device_tensor(x, device) -> torch.Tensor:
+    """A tensor or array on ``device`` (no copy when it is there already;
+    a read-only array, such as a memmap, is copied on the host first)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.asarray(x)
+    if not x.flags.writeable:
+        x = x.copy()
+    return torch.from_numpy(x).to(device)
+
+
+def synchronize(device: torch.device):
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,217 @@
+"""Command line of the port (``mevi_tpu.cli.main``'s index-build and
+search subcommands; the others come with slice E):
+
+  build-index    RQ codebooks + CSR fine index  (marco_generate_*_rq.sh)
+  build-hier     hierarchical k-means ids, prefix clusters, trie tables
+  search         exact MIPS top-k over embeddings, or an ADC scan over
+                 RQ codes                              (faiss_search.py)
+
+Every command takes ``--config config.json`` (defaults when absent), the
+JAX package's flags and output files, and ``--device`` (default
+``cuda``).  Run ``python -m mevi_tpu_torch.cli.main <cmd> --help``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import os.path as osp
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..config import MEVIConfig
+
+
+def load_config(path) -> MEVIConfig:
+    if path and osp.exists(path):
+        with open(path) as fr:
+            cfg = MEVIConfig.from_json(fr.read())
+    else:
+        cfg = MEVIConfig()
+    return cfg.finalize()
+
+
+# --------------------------------------------------------------------------
+# commands
+# --------------------------------------------------------------------------
+
+def cmd_build_index(args):
+    from ..data import io as dio
+    from ..index.build import build_rq_index
+    from ..index.csr import size_histogram
+    from ..train.checkpoints import ArtifactCache
+    cfg = load_config(args.config)
+    emb = dio.open_embedding_memmap(args.embeddings, cfg.rq.emb_size)
+    cache = ArtifactCache(args.cache_dir) if args.cache_dir else None
+    arts = build_rq_index(cfg, emb, seed=args.seed, iters=args.iters,
+                          cache=cache, device=args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    np.save(osp.join(args.output_dir, "rq_codebooks.npy"), arts.codebooks)
+    np.save(osp.join(args.output_dir, "rq_codes.npy"), arts.codes)
+    if arts.prefix_shift is not None:
+        # the conditioning tables are part of the quantizer: consumers
+        # re-assigning new docs must load them (ops/rq.assign)
+        np.savez(osp.join(args.output_dir, "rq_prefix_shift.npz"),
+                 **{f"l{i + 1}": t
+                    for i, t in enumerate(arts.prefix_shift)})
+    np.save(osp.join(args.output_dir, "csr_offsets.npy"),
+            arts.fine.host_offsets)
+    np.save(osp.join(args.output_dir, "csr_doc_ids.npy"),
+            arts.fine.host_doc_ids)
+    print(json.dumps(size_histogram(arts.fine.host_offsets)))
+
+
+def cmd_build_hier(args):
+    """Hierarchical k-means ids + prefix-cluster pickles + trie tables
+    (``prepare_clus``, ``prepare_origin.py:12-28``)."""
+    from ..data import io as dio
+    from ..index.hierarchical import (hierarchical_kmeans_ids,
+                                      save_hier_artifacts)
+    cfg = load_config(args.config)
+    emb = dio.open_embedding_memmap(args.embeddings, cfg.rq.emb_size)
+    ids = hierarchical_kmeans_ids(emb, k=args.k, c=args.c, seed=args.seed,
+                                  iters=args.iters, device=args.device)
+    layers = [int(x) for x in args.layers.split(",")]
+    save_hier_artifacts(args.output_dir, ids, layers,
+                        kary=max(args.k, args.c))
+    lens = [len(s) for s in ids]
+    print(json.dumps({"n_docs": len(ids), "max_len": max(lens),
+                      "mean_len": round(sum(lens) / len(lens), 2)}))
+
+
+def _write_results(path, ids, scores, names=None):
+    """faiss_search.to_file contract: query \\t\\t preds \\t scores."""
+    with open(path, "w") as fw:
+        for i in range(len(ids)):
+            fw.write("\t".join([
+                names[i] if names else str(i), "", str(ids[i].tolist()),
+                str([float(x) for x in scores[i]])]) + "\n")
+
+
+def cmd_search(args):
+    from .. import resolve_device, synchronize
+    from ..data import io as dio
+    from ..ops.mips import mips_topk
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    docs = dio.open_embedding_memmap(args.doc_embeddings, cfg.rq.emb_size)
+    queries = np.array(dio.open_embedding_memmap(args.query_embeddings,
+                                                 cfg.rq.emb_size))
+    if args.adc_codes:
+        # ADC scan over RQ codes (ops/adc.py) instead of full embeddings
+        from ..ops.adc import adc_search, build_adc_codes
+        codes = np.load(args.adc_codes)
+        cbs = torch.from_numpy(np.load(args.adc_codebooks)).to(dev)
+        oh = torch.from_numpy(build_adc_codes(codes, cfg.rq.kary)).to(dev)
+        out_scores, out_ids = [], []
+        t0 = time.time()
+        for s in range(0, len(queries), args.batch):
+            sc, ids = adc_search(torch.from_numpy(queries[s:s + args.batch]),
+                                 cbs, oh, k=args.topk, device=dev)
+            out_scores.append(sc.cpu().numpy())
+            out_ids.append(ids.cpu().numpy())
+        print(f"ADC: {len(queries)} queries in {time.time() - t0:.2f}s",
+              file=sys.stderr)
+        if args.output:
+            _write_results(args.output, np.concatenate(out_ids),
+                           np.concatenate(out_scores))
+        return
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    docs_d = torch.from_numpy(np.array(docs)).to(dev, dtype)
+
+    def q_batch(s, bs):
+        return torch.from_numpy(queries[s:s + bs]).to(dev, dtype)
+    if args.profile:
+        # latency profile across batch sizes (faiss_search.py:32-68)
+        for bs in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            q = q_batch(0, bs)
+            if q.shape[0] < bs:
+                q = q.repeat(-(-bs // max(q.shape[0], 1)), 1)[:bs]
+            mips_topk(q, docs_d, k=args.topk)
+            synchronize(dev)
+            t0 = time.time()
+            for _ in range(5):
+                mips_topk(q, docs_d, k=args.topk)
+            synchronize(dev)
+            dt = (time.time() - t0) / 5
+            print(f"bs={bs}: {dt * 1e3:.2f} ms/batch "
+                  f"{bs / dt:.1f} q/s", file=sys.stderr)
+        return
+    out_scores, out_ids = [], []
+    t0 = time.time()
+    for s in range(0, len(queries), args.batch):
+        sc, ids = mips_topk(q_batch(s, args.batch), docs_d, k=args.topk)
+        out_scores.append(sc.cpu().numpy())
+        out_ids.append(ids.cpu().numpy())
+    dt = time.time() - t0
+    print(f"{len(queries)} queries in {dt:.2f}s "
+          f"({len(queries) / dt:.1f} q/s)", file=sys.stderr)
+    if args.output:
+        names = None
+        if args.queries_tsv:
+            names = [q for q, _ in dio.read_query_docids_tsv(
+                args.queries_tsv)]
+        _write_results(args.output, np.concatenate(out_ids),
+                       np.concatenate(out_scores), names)
+
+
+# --------------------------------------------------------------------------
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="mevi_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("build-index")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--embeddings", required=True)
+    sp.add_argument("--output_dir", required=True)
+    sp.add_argument("--cache_dir", default=None)
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--iters", type=int, default=25)
+    sp.set_defaults(fn=cmd_build_index)
+
+    sp = sub.add_parser("build-hier")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--embeddings", required=True)
+    sp.add_argument("--output_dir", required=True)
+    sp.add_argument("--k", type=int, default=30)
+    sp.add_argument("--c", type=int, default=30)
+    sp.add_argument("--layers", default="1,2,3")
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--iters", type=int, default=10)
+    sp.set_defaults(fn=cmd_build_hier)
+
+    sp = sub.add_parser("search")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--doc_embeddings", required=True)
+    sp.add_argument("--query_embeddings", required=True)
+    sp.add_argument("--queries_tsv", default=None)
+    sp.add_argument("--topk", type=int, default=1000)
+    sp.add_argument("--batch", type=int, default=256)
+    sp.add_argument("--bf16", action="store_true")
+    sp.add_argument("--profile", action="store_true",
+                    help="latency profile across batch sizes")
+    sp.add_argument("--adc_codes", default=None,
+                    help="rq_codes.npy: ADC scan instead of exact MIPS")
+    sp.add_argument("--adc_codebooks", default=None,
+                    help="rq_codebooks.npy (required with --adc_codes)")
+    sp.add_argument("--output", default=None)
+    sp.set_defaults(fn=cmd_search)
+
+    for sp in sub.choices.values():
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

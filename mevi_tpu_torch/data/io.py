@@ -1,9 +1,12 @@
 """File contracts shared with the reference data pipeline (the port's
-copy of the query/gt and result-tsv parts of ``mevi_tpu.data.io``; the
-token and embedding memmaps and packed queries come with slice E).
+copy of the query/gt, embedding-memmap and result-tsv parts of
+``mevi_tpu.data.io``; the token memmaps and packed queries come with
+slice E).
 
 * ``dev_mevi_dedup.tsv`` / ``qg{n}.tsv`` — ``query \\t docid[,docid...]``
   (``MEVI/main_utils.py:235-291``).
+* ``docemb.bin`` — float32 memmap ``(ndoc, emb)``
+  (``MEVI/generate.py:140-187``).
 * result tsvs: coarse ``(query, clusters, gts, scores)``, fine
   ``(query, ndoc, docids, gts)``, hard-neg ``(query, gt_scores, docids,
   scores)`` (``MEVI/main_models.py:4227-4235``, parsed by
@@ -14,6 +17,8 @@ from __future__ import annotations
 
 import ast
 from typing import Dict, Iterable, List, Sequence, Tuple
+
+import numpy as np
 
 
 # --------------------------------------------------------------------------
@@ -46,6 +51,22 @@ def read_gt_dict(path: str) -> Dict[str, List[int]]:
     ``ensemble_marco.py:164`` uses columns (0, -1))."""
     return dict(read_query_docids_tsv(path))
 
+
+# --------------------------------------------------------------------------
+# embedding memmaps
+# --------------------------------------------------------------------------
+
+def open_embedding_memmap(path: str, emb_size: int = 768,
+                          dtype=np.float32) -> np.memmap:
+    emb = np.memmap(path, dtype=dtype, mode="r")
+    return emb.reshape(-1, emb_size)
+
+
+def write_embedding_memmap(path: str, emb: np.ndarray,
+                           dtype=np.float32) -> None:
+    mm = np.memmap(path, dtype=dtype, mode="w+", shape=emb.shape)
+    mm[:] = emb.astype(dtype)
+    mm.flush()
 
 
 # --------------------------------------------------------------------------

@@ -43,14 +43,19 @@ def host_csr(index: FineIndex) -> Tuple[np.ndarray, np.ndarray]:
             index.doc_ids.cpu().numpy())
 
 
-def build_fine_index(codes: np.ndarray, emb: np.ndarray, kary: int,
+def build_fine_index(codes: np.ndarray, emb, kary: int,
                      dtype=None, device="cuda") -> FineIndex:
-    """Serving layout from per-doc codes (N, M) and embeddings (N, d).
+    """Serving layout from per-doc codes (N, M) and embeddings (N, d),
+    a host array or a tensor; a tensor is gathered into CSR order on its
+    own device (a bf16 corpus on the card never passes through numpy).
     The bucket kernel reads only rows inside buckets, so no slack rows
     are appended."""
     dev = resolve_device(device)
     offsets, doc_ids = build_csr(codes, kary)
-    sorted_emb = torch.from_numpy(np.ascontiguousarray(emb[doc_ids]))
+    if isinstance(emb, torch.Tensor):
+        sorted_emb = emb[torch.from_numpy(doc_ids).to(emb.device).long()]
+    else:
+        sorted_emb = torch.from_numpy(np.ascontiguousarray(emb[doc_ids]))
     if dtype is not None:
         sorted_emb = sorted_emb.to(dtype)
     return FineIndex(torch.from_numpy(offsets).to(dev),

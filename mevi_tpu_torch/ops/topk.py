@@ -45,3 +45,17 @@ def streaming_topk(score_chunk_fn: Callable[[int], Tuple[torch.Tensor,
         bids = ids.expand(batch_shape + (ids.shape[-1],))
         run_s, run_i = merge_topk(run_s, run_i, scores, bids, k)
     return run_s, run_i
+
+
+def chunk_ids_clamped(c: int, chunk: int, num_items: int, device=None
+                      ) -> Tuple[int, torch.Tensor]:
+    """Start and ids of chunk ``c`` of ``num_items`` rows, the start
+    clamped so a ``chunk``-row slice stays in bounds.  Returns
+    (clamped_start, ids (chunk,) int64): rows that an earlier chunk
+    already covered, and rows past ``num_items`` (only when
+    ``num_items < chunk``), carry id -1 so they are masked."""
+    requested = c * chunk
+    start = min(requested, max(num_items - chunk, 0))
+    ids = start + torch.arange(chunk, device=device)
+    valid = (ids >= requested) & (ids < num_items)
+    return start, torch.where(valid, ids, torch.full_like(ids, -1))

@@ -65,10 +65,16 @@ def _entry_points():
                                               build_fine_index)
     from mevi_tpu_torch.eval.streaming import (HostStreamFineReranker,
                                                streaming_mips_topk)
+    from mevi_tpu_torch.config import MEVIConfig, RQConfig
+    from mevi_tpu_torch.index.build import build_rq_index, embed_corpus
     from mevi_tpu_torch.index.csr import make_index
+    from mevi_tpu_torch.index.hierarchical import hierarchical_kmeans_ids
     from mevi_tpu_torch.models.nci import NCIDims, NCIT5
     from mevi_tpu_torch.models.pawa import PawaAdaptor, PawaDims
     from mevi_tpu_torch.models.t5 import T5Dims, T5Model
+    from mevi_tpu_torch.ops.adc import adc_search, fill_onehot_matrix
+    from mevi_tpu_torch.ops.kmeans import kmeans_fit
+    from mevi_tpu_torch.ops.rq import rq_train
     from mevi_tpu_torch.ops.bucket import (bucket_scores, bucket_scores_fused,
                                            bucket_scores_v2, bucket_scores_v3)
     from mevi_tpu_torch.scripts import profile_bucket
@@ -93,6 +99,14 @@ def _entry_points():
         return Evaluator(NCIT5(nd, device="cpu"), InferConfig(), index,
                          **kw)
     off = torch.tensor([0, 8, 8], dtype=torch.int32)
+    cfg = MEVIConfig(rq=RQConfig(subvector_num=1, subvector_bits=1,
+                                 emb_size=8))
+    cfg.encoder.d_model = 8
+    cfg.finalize()
+    tok = np.ones((3, 4), np.int64)
+
+    def rep(ids, mask):
+        return torch.zeros(ids.shape[0], 8, device=ids.device)
     return {
         "T5Model": lambda **kw: T5Model(t5, **kw),
         "NCIT5": lambda **kw: NCIT5(nd, **kw),
@@ -118,6 +132,17 @@ def _entry_points():
         "Evaluator": evaluator,
         "profile_bucket.profile": lambda **kw: profile_bucket.profile(
             semb, off, z, q, 4, reps=1, **kw),
+        "kmeans_fit": lambda **kw: kmeans_fit(emb, 2, iters=1, **kw),
+        "rq_train": lambda **kw: rq_train(emb, 1, 2, iters=1, **kw),
+        "build_rq_index": lambda **kw: build_rq_index(cfg, emb, iters=1,
+                                                      **kw),
+        "adc_search": lambda **kw: adc_search(emb[:2], np.zeros(
+            (1, 2, 8), np.float32), np.zeros((8, 2), np.int8), 3, **kw),
+        "fill_onehot_matrix": lambda **kw: fill_onehot_matrix(codes, 2,
+                                                              **kw),
+        "hierarchical_kmeans_ids": lambda **kw: hierarchical_kmeans_ids(
+            np.eye(8, dtype=np.float32), k=2, c=4, iters=1, **kw),
+        "embed_corpus": lambda **kw: embed_corpus(rep, tok, tok, 2, **kw),
     }
 
 
@@ -126,7 +151,9 @@ ENTRY_NAMES = ["T5Model", "NCIT5", "PawaAdaptor", "build_fine_index",
                "bucket_scores_fused", "bucket_scores_v2", "bucket_scores",
                "bucket_scores_dispatch", "streaming_mips_topk",
                "HostStreamFineReranker", "make_index", "Evaluator",
-               "profile_bucket.profile"]
+               "profile_bucket.profile", "kmeans_fit", "rq_train",
+               "build_rq_index", "adc_search", "fill_onehot_matrix",
+               "hierarchical_kmeans_ids", "embed_corpus"]
 
 
 @pytest.mark.parametrize("name", ENTRY_NAMES)
