@@ -56,11 +56,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;             // window slots per block (bucket_kernel)
+constexpr int kTile = 64;             // window slots per block (bf16, f32)
 constexpr int kStageBytes = 32 << 10; // corpus bytes per v2 pipeline stage
 constexpr int kMaxStageRows = 64;
 constexpr float kNeg = -1e30f;
@@ -100,6 +102,181 @@ __device__ __forceinline__ float dot16(const uint4& v, const float* q,
   for (int i = 0; i < 16; ++i) acc = fmaf(static_cast<float>(c[i]), q[i], acc);
   return acc;
 }
+
+// ---------------------------------------------------------------------------
+// int8 corpus: one block per bucket, several rows in flight per warp
+// ---------------------------------------------------------------------------
+
+// 16 int8 values dotted with 16 float32 query values, added to acc.  Each
+// byte is widened exactly without I2F: b ^ 0x80 = b + 128 in [0, 255]
+// goes into the low mantissa byte of 2^23 (PRMT), and subtracting
+// 2^23 + 128 = 8388736 (FADD) leaves b as float32.
+__device__ __forceinline__ float dot16_i8(const uint4& v, const float* q,
+                                          float acc) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc = fmaf(static_cast<float>(c[i]), q[i], acc);
+  return acc;
+}
+
+// Lanes a corpus row is split over: each lane takes at most 4 of the
+// row's nvec 16-byte vectors, and a row has at least 4 lanes (as many as
+// the rows a lane keeps in flight).
+__host__ __device__ inline int i8_lanes(int nvec) {
+  int lanes = 4;
+  while (lanes < 32 && lanes * 4 < nvec) lanes <<= 1;
+  return lanes;
+}
+
+// Vectors a lane holds with the query slice in registers (1-4), or 0
+// when the slice would not fit (nvec > 128: d > 2048) and the query is
+// read from shared memory instead.
+inline int i8_vectors(int nvec) {
+  return nvec > 128 ? 0 : (nvec + i8_lanes(nvec) - 1) / i8_lanes(nvec);
+}
+
+// 16 query floats of vector k out of shared memory (zeros past the row).
+__device__ __forceinline__ void query16(float (&out)[16], const float* qs,
+                                        int k, int nvec) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 v = k < nvec ? reinterpret_cast<const float4*>(qs)[4 * k + m]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    out[4 * m] = v.x;
+    out[4 * m + 1] = v.y;
+    out[4 * m + 2] = v.z;
+    out[4 * m + 3] = v.w;
+  }
+}
+
+// Sums each of a lane's R partial sums over the `lanes` lanes of its
+// group with one butterfly: every transposed level halves the values a
+// lane holds (it keeps one half, sends the other to its partner), so R
+// rows cost R - 1 + log2(lanes / R) shuffles.  Lane l ends with the
+// full sum of row l * R / lanes.
+template <int R>
+__device__ __forceinline__ float reduce_rows(float (&acc)[R], int l,
+                                             int lanes) {
+#pragma unroll
+  for (int n = R; n > 1; n >>= 1) {
+    const int o = lanes * n / (2 * R);
+    const bool up = (l & o) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? acc[i] : acc[i + n / 2];
+      const float keep = up ? acc[i + n / 2] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  for (int o = lanes / (2 * R); o > 0; o >>= 1)
+    acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], o);
+  return acc[0];
+}
+
+// bucket_kernel for an int8 corpus, one block per bucket (the overload
+// on const int8_t*; its template arguments are the query type, the mode
+// and V).  Window slots [j0, j1) hold the rows to score; masked modes
+// fill the other slots first.  A warp's lanes form groups of `lanes`
+// lanes, one row per group; each lane loads R rows' vectors k = l,
+// l + lanes, ... before any arithmetic, so a warp has R * 32 / lanes rows
+// in flight (8 rows, 6 KB at d = 768).  V > 0: the lane's query slice (V
+// vectors x 16 floats) sits in registers for the whole bucket; V == 0
+// (d > 2048): the row is taken in chunks of 4 vectors a lane and the
+// query is read from shared memory.
+template <typename Q, int kMode, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
+              const int* __restrict__ starts, const int* __restrict__ ends,
+              const int* __restrict__ offsets, const int* __restrict__ cidx,
+              const Q* __restrict__ qemb, int cap, int align,
+              float* __restrict__ scores, int* __restrict__ rows) {
+  extern __shared__ float qs[];   // d floats
+  const int g = blockIdx.x;
+  int s, e;
+  if (kMode == kFused) {
+    const int c = cidx[g];
+    s = offsets[c];
+    e = offsets[c + 1];
+  } else {
+    s = starts[g];
+    e = (kMode == kRaw) ? 0 : ends[g];
+  }
+  const int al = (kMode == kRaw) ? s : (s / align) * align;
+  const Q* qrow = qemb + static_cast<size_t>(g) * d;
+  float* out_s = scores + static_cast<size_t>(g) * cap;
+  int* out_r = (kMode == kRaw) ? nullptr : rows + static_cast<size_t>(g) * cap;
+  constexpr int kV = V > 0 ? V : 4;        // vectors a lane takes per chunk
+  constexpr int R = kV >= 4 ? 2 : 4;       // rows in flight per lane group
+  const int j0 = 0, j1 = cap;
+  const int v0 = kMode == kRaw ? 0 : max(s, al) - al;
+  const int v1 = kMode == kRaw ? cap : min(e, al + cap) - al;
+  for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = to_f32(qrow[i]);
+  __syncthreads();
+
+  const int nvec = d >> 4;
+  const int lanes = V > 0 ? i8_lanes(nvec) : 32;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (lanes - 1);        // lane within its group
+  const int groups = 32 / lanes;
+  const int grp = lane / lanes;
+  const int step = kV * lanes;             // vectors a chunk covers
+  float qf[V > 0 ? V : 1][16];
+  if (V > 0) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) query16(qf[i], qs, l + lanes * i, nvec);
+  }
+  const int per_warp = R * groups;         // slots a warp takes per round
+  for (int jb = j0 + (threadIdx.x >> 5) * per_warp; jb < j1;
+       jb += kWarps * per_warp) {
+    const uint4* src[R];
+    bool ok[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = jb + r * groups + grp;
+      ok[r] = j >= v0 && j < v1;
+      long long row = static_cast<long long>(al) + j;
+      if (kMode == kRaw) row = min(row, n_rows - 1);
+      src[r] = reinterpret_cast<const uint4*>(
+          semb + static_cast<size_t>(ok[r] ? row : 0) * d);
+    }
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int kb = l; kb < nvec; kb += step) {  // V > 0: one chunk
+      uint4 x[R][kV];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < kV; ++i) {
+          const int k = kb + lanes * i;
+          x[r][i] = (ok[r] && k < nvec) ? __ldg(src[r] + k)
+                                        : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        float qv[16];
+        if (V == 0) query16(qv, qs, kb + lanes * i, nvec);
+        const float* qp = V > 0 ? qf[V > 0 ? i : 0] : qv;
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = dot16_i8(x[r][i], qp, acc[r]);
+      }
+    }
+    const float sum = reduce_rows<R>(acc, l, lanes);
+    if ((l & (lanes / R - 1)) == 0) {      // one writer lane per row
+      const int j = jb + (l * R / lanes) * groups + grp;
+      if (j < j1) {
+        const bool valid = j >= v0 && j < v1;
+        out_s[j] = valid ? sum : kNeg;
+        if (kMode != kRaw) out_r[j] = valid ? al + j : -1;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and f32 corpora: one block per (bucket, tile of kTile slots), one
+// warp per slot at a time
+// ---------------------------------------------------------------------------
 
 template <typename T, typename Q, int kMode>
 __global__ void __launch_bounds__(kThreads)
@@ -296,29 +473,55 @@ bucket_kernel_v2(const T* __restrict__ semb, int d,
 // launchers
 // ---------------------------------------------------------------------------
 
+// One mode's launch: int8 corpora take one block per bucket and the
+// instance for their vectors a lane (i8_vectors); bf16 and f32 one block
+// per (bucket, tile).
+template <typename T, typename Q, int kMode, typename... A>
+void launch_mode(int G, int cap, int d, cudaStream_t stream, A... args) {
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const dim3 grid(G);
+    switch (i8_vectors(d / 16)) {
+      case 1:
+        bucket_kernel<Q, kMode, 1><<<grid, kThreads, smem, stream>>>(args...);
+        break;
+      case 2:
+        bucket_kernel<Q, kMode, 2><<<grid, kThreads, smem, stream>>>(args...);
+        break;
+      case 3:
+        bucket_kernel<Q, kMode, 3><<<grid, kThreads, smem, stream>>>(args...);
+        break;
+      case 4:
+        bucket_kernel<Q, kMode, 4><<<grid, kThreads, smem, stream>>>(args...);
+        break;
+      default:
+        bucket_kernel<Q, kMode, 0><<<grid, kThreads, smem, stream>>>(args...);
+    }
+  } else {
+    const dim3 grid(G, (cap + kTile - 1) / kTile);
+    bucket_kernel<T, Q, kMode><<<grid, kThreads, smem, stream>>>(args...);
+  }
+}
+
 template <typename T, typename Q>
 cudaError_t launch(const void* semb, int d, long long n_rows,
                    const int* starts, const int* ends, const int* offsets,
                    const int* cidx, const void* qemb, int G, int cap,
                    int align, bool raw, float* scores, int* rows,
                    cudaStream_t stream) {
-  const dim3 grid(G, (cap + kTile - 1) / kTile);
-  const dim3 block(kThreads);
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
   const T* e = static_cast<const T*>(semb);
   const Q* q = static_cast<const Q*>(qemb);
+  const int* none = nullptr;
   if (raw) {
-    bucket_kernel<T, Q, kRaw><<<grid, block, smem, stream>>>(
-        e, d, n_rows, starts, nullptr, nullptr, nullptr, q, cap, 1, scores,
-        nullptr);
+    launch_mode<T, Q, kRaw>(G, cap, d, stream, e, d, n_rows, starts, none,
+                            none, none, q, cap, 1, scores,
+                            static_cast<int*>(nullptr));
   } else if (offsets != nullptr) {
-    bucket_kernel<T, Q, kFused><<<grid, block, smem, stream>>>(
-        e, d, n_rows, nullptr, nullptr, offsets, cidx, q, cap, align, scores,
-        rows);
+    launch_mode<T, Q, kFused>(G, cap, d, stream, e, d, n_rows, none, none,
+                              offsets, cidx, q, cap, align, scores, rows);
   } else {
-    bucket_kernel<T, Q, kBounds><<<grid, block, smem, stream>>>(
-        e, d, n_rows, starts, ends, nullptr, nullptr, q, cap, align, scores,
-        rows);
+    launch_mode<T, Q, kBounds>(G, cap, d, stream, e, d, n_rows, starts, ends,
+                               none, none, q, cap, align, scores, rows);
   }
   return cudaGetLastError();
 }

@@ -9,7 +9,10 @@ PyTorch versions; the CUDA kernel itself is held against them by the
 Rows equal.  Scores: atol 1e-5 in float32 (both sides sum float32
 products of the same values, only the summation order differs); bf16
 adds rtol 1e-6, and the int8 corpus, whose rows are the float rows
-times 40, takes 40 x 1e-5."""
+times 40, takes 40 x 1e-5.  On the card: rtol 1e-4, atol 1e-3, except
+the int8 cases of ``INT8_CASES``, whose every product and partial sum
+is exact in float32 (full-range int8 rows, queries k * 2^m with
+|k| <= 32), so the kernel must equal its plain version bit for bit."""
 
 from types import SimpleNamespace
 
@@ -83,6 +86,31 @@ def _tol(name):
     if name == "int8":           # rows are the float rows x 40
         return dict(atol=40 * 1e-5, rtol=0)
     return dict(atol=1e-5, rtol=0 if name == "f32" else 1e-6)
+
+
+def test_int8_widening_identity():
+    """The int8 kernel widens a byte b without I2F: ``__byte_perm(w ^
+    0x80808080, 0x4B000000, 0x7540 | i)`` puts byte i of w, XORed with
+    0x80 (b + 128 in [0, 255]), into the low mantissa byte of 2^23, and
+    subtracting 2^23 + 128 leaves b exactly, for all 256 values."""
+    b = np.arange(-128, 128).astype(np.int8)
+    words = b.view(np.uint8).reshape(-1, 4).copy().view("<u4")[:, 0]
+    x = words ^ np.uint32(0x80808080)
+    for i in range(4):
+        # __byte_perm(x, y, s): result byte n is byte s_n of (y:x)
+        sel = 0x7540 | i
+        src = np.concatenate([x.view(np.uint8).reshape(-1, 4),
+                              np.tile(np.frombuffer(
+                                  np.uint32(0x4B000000).tobytes(), np.uint8),
+                                      (len(x), 1))], axis=1)
+        out = np.stack([src[:, (sel >> (4 * n)) & 7] for n in range(4)], 1)
+        f = out.copy().view("<f4")[:, 0] - np.float32(8388736.0)
+        np.testing.assert_array_equal(f, b[i::4].astype(np.float32))
+    bits = np.uint32(0x4B000000) | (b.view(np.uint8) ^ 0x80).astype(
+        np.uint32)
+    np.testing.assert_array_equal(bits.view(np.float32)
+                                  - np.float32(8388736.0),
+                                  b.astype(np.float32))
 
 
 def _assert_same(got, ref, name):
@@ -234,23 +262,65 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# int8 corpora on the card: d (16-byte vectors a row: 1, 3, 8, 48, 49,
+# 129: one vector, ragged lane groups, 2 vectors a lane, the serving
+# width, 4 vectors a lane, the query past its register slice), cap (not
+# all multiples of 64), query type and scale (f32 of large magnitude).
+INT8_CASES = {"int8_d16": (16, 100, "bf16", 1 / 8),
+              "int8_d48": (48, 64, "bf16", 1 / 8),
+              "int8_d128": (128, 72, "bf16", 1 / 8),
+              "int8_d768": (768, 512, "bf16", 1 / 8),
+              "int8_d784_f32": (784, 200, "f32", 4096.0),
+              "int8_d2064": (2064, 96, "bf16", 1 / 8)}
+
+
+def int8_case(name, dev):
+    """A CSR over 40 clusters of full-range int8 rows (rows of -128 and
+    of 127 inside the bucket over cap), an empty cluster, starts off the
+    8-grid, a small last cluster whose windows run past N; 64 buckets and
+    queries k * scale with integer |k| <= 32, so that every float32 sum
+    is exact.  Returns (semb, offsets, cidx, q, cap) on ``dev``."""
+    d, cap, qname, scale = INT8_CASES[name]
+    rng = np.random.default_rng(d + cap)
+    sizes = rng.integers(0, 60, size=40)
+    sizes[3] = 0
+    sizes[7] = 2 * cap + 5
+    sizes[-1] = 13
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    n = int(offsets[-1])
+    emb = rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+    emb[offsets[7]] = -128
+    emb[offsets[7] + 1] = 127
+    ci = rng.integers(0, len(sizes), 64).astype(np.int32)
+    ci[:3] = [7, 3, len(sizes) - 1]
+    q = (rng.integers(-32, 33, size=(64, d)) * scale).astype(np.float32)
+    return (torch.from_numpy(emb).to(dev),
+            torch.from_numpy(offsets).to(dev), torch.from_numpy(ci).to(dev),
+            torch.from_numpy(q).to(dev, DTYPES[qname]), cap)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("name", list(DTYPES) + list(INT8_CASES))
 @pytest.mark.parametrize("mode", ["v3", "fused"])
 @pytest.mark.parametrize("align", [8, 1])
 def test_cuda_kernel_matches_plain(case, cuda_device, name, mode, align):
-    offsets, emb, ci, q = case
-    semb = _torch_t(_corpus(emb, name)[:N], name).to(cuda_device)
-    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
-    off = torch.from_numpy(offsets.astype(np.int32)).to(cuda_device)
-    cit = torch.from_numpy(ci).to(cuda_device)
-    ref = tb.bucket_scores_fused_plain(semb, off, cit, qt, CAP, align)
+    if name in INT8_CASES:
+        semb, off, cit, qt, cap = int8_case(name, cuda_device)
+        tol = dict(rtol=0, atol=0)
+    else:
+        offsets, emb, ci, q = case
+        semb = _torch_t(_corpus(emb, name)[:N], name).to(cuda_device)
+        qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+        off = torch.from_numpy(offsets.astype(np.int32)).to(cuda_device)
+        cit = torch.from_numpy(ci).to(cuda_device)
+        cap, tol = CAP, dict(rtol=1e-4, atol=1e-3)
+    ref = tb.bucket_scores_fused_plain(semb, off, cit, qt, cap, align)
     if mode == "fused":
-        got = tb.bucket_scores_fused(semb, off, cit, qt, CAP, align)
+        got = tb.bucket_scores_fused(semb, off, cit, qt, cap, align)
     else:
         got = tb.bucket_scores_v3(semb, off[cit.long()],
-                                  off[cit.long() + 1], qt, CAP, align)
+                                  off[cit.long() + 1], qt, cap, align)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got[1].cpu().numpy(), ref[1].cpu().numpy())
     np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(),
-                               rtol=1e-4, atol=1e-3)
+                               **tol)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from mevi_tpu_torch.ops import bucket as tb
+from test_torch_bucket import INT8_CASES, int8_case
 
 N, D, CAP = 1000, 32, 64
 NPAD = N + CAP + 8                   # slack rows the TPU kernels DMA
@@ -315,11 +316,24 @@ def test_cuda_v2_matches_plain(case, cuda_device, name, wide, align):
                                rtol=1e-4, atol=1e-3)
 
 
+RAW_CASES = ([(wide, name) for wide in (False, True) for name in DTYPES]
+             + [(False, name) for name in INT8_CASES])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(DTYPES))
-@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize(
+    "wide,name", RAW_CASES,
+    ids=[name if name in INT8_CASES else f"{wide}-{name}"
+         for wide, name in RAW_CASES])
 def test_cuda_raw_matches_plain(case, cuda_device, name, wide):
-    if wide:
+    """Every window clipped at N - 1 somewhere; the int8 cases of
+    ``INT8_CASES`` (exact float32 sums) must equal the plain version."""
+    tol = dict(rtol=1e-4, atol=1e-3)
+    if name in INT8_CASES:
+        semb, off, cit, q, cap = int8_case(name, cuda_device)
+        st = tb.align_down(off[cit.long()]).contiguous()
+        tol = dict(rtol=0, atol=0)
+    elif wide:
         semb, st, _, q, cap = _wide_case(cuda_device, name)
         st = tb.align_down(st)
     else:
@@ -333,8 +347,7 @@ def test_cuda_raw_matches_plain(case, cuda_device, name, wide):
     ref = tb.bucket_scores_plain(semb, st, q, cap)
     got = tb.bucket_scores(semb, st, q, cap)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **tol)
 
 
 @pytest.mark.cuda
