@@ -113,9 +113,16 @@ __device__ __forceinline__ float dot16(const uint4& v, const float* q,
 // 2^23 + 128 = 8388736 (FADD) leaves b as float32.
 __device__ __forceinline__ float dot16_i8(const uint4& v, const float* q,
                                           float acc) {
-  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+  const unsigned w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u,
+                         v.z ^ 0x80808080u, v.w ^ 0x80808080u};
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc = fmaf(static_cast<float>(c[i]), q[i], acc);
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc = fmaf(__int_as_float(static_cast<int>(
+                     __byte_perm(w[j], 0x4B000000u, 0x7540u | b))) -
+                     8388736.0f,
+                 q[4 * j + b], acc);
   return acc;
 }
 
