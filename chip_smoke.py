@@ -24,12 +24,13 @@ Phases:
   2b. the raw-score path on the last override batch:
      ``bucket_scores_dispatch`` (raw kernel) + ``mask_pool_topk``, held
      against the server's pool;
-  3. one served batch over the same corpus quantized to int8;
+  3. served batches over the same corpus quantized to int8 (phase 2's
+     warm-up and timed counts);
   4. offline evaluation (``Evaluator``, ``InferConfig`` defaults: 10
      beams, cap 4096, pool 1000) of 1,024 queries at batch 512 over the
      bf16 index; coarse metrics against a plain recomputation; host
      streaming over a host copy of the int8 corpus against the device
-     reranker; ``eval_all_documents`` on the device against the
+     reranker (v3 over the int8 corpus, its launches counted); ``eval_all_documents`` on the device against the
      host-streamed scan; the result tsvs written and read back;
   5. the index build, after phases 1-4's corpus is freed:
      ``build_rq_index`` of ``configs/marco_rq4x5.json`` (4 levels x 32,
@@ -47,7 +48,8 @@ Phases:
      ``hierarchical_kmeans_ids`` (k 30, c 30) on 65,536 rows.
 
 Prints JSON lines as it goes; before the last line the card's name and
-power limit and one JSON object of the kernels; the last line is
+power limit and one JSON object of the kernels (the bf16 phase-1 run,
+with the int8 run under ``int8``); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or if
 any phase fails.
 """
@@ -632,13 +634,18 @@ def eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8, scale,
     with torch.inference_mode():
         qemb = rep8(torch.from_numpy(ids[:m]).to(dev),
                     torch.from_numpy(mask[:m]).to(dev))
+    reset_counts()
     ds, di, dn = dev_rr(qemb, codes_hs)
+    n_4c = read_counts()["v3"]
+    if n_4c == 0:
+        raise AssertionError("4c: the v3 kernel never launched")
     hs_s, hs_i = pools_of(out_hs.results)
     err, n_sep = compare_pools("4_host_stream", (torch.from_numpy(hs_s),
                                                  torch.from_numpy(hs_i)),
                                (torch.from_numpy(ds), torch.from_numpy(di)))
     emit(phase="4_host_stream", queries=m, host_copy_s=copy_s,
          host_stream_ms=hs_ms, max_abs_pool_err=err, ids_compared=n_sep,
+         device_rerank_v3_launches=n_4c,
          pool_filled=float((hs_i >= 0).mean()),
          ndoc_equal=bool((np.concatenate([r.ndoc for r in out_hs.results])
                           == dn).all()))
@@ -659,7 +666,7 @@ def eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8, scale,
         (torch.from_numpy(rh.fine_scores), torch.from_numpy(rh.fine_ids)))
     emit(phase="4_eval_all_documents", queries=B, device_ms=td,
          host_stream_ms=th, max_abs_pool_err=err_a, ids_compared=n_sep_a)
-    return n_eval
+    return n_eval, n_4c
 
 
 # ---------------------------------------------------------------------------
@@ -984,9 +991,10 @@ def build_phase(cfg, seed, dev, qtower, nci):
 
 def serve_phases(cfg, seed, dev):
     """Phases 1-4 over the corpus of :func:`make_corpus`.  Returns
-    (phase-1 results, launches of each kernel on its path, int8 and
-    evaluation launches, (qtower, nci)); the corpus, its int8 copy and
-    the servers are freed on return."""
+    (phase-1 results, bf16 and int8, launches of each kernel on its
+    path, launches on the int8 paths, evaluation launches, (qtower,
+    nci)); the corpus, its int8 copy and the servers are freed on
+    return."""
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.build import quantize_int8
     from mevi_tpu_torch.ops import bucket as B
@@ -1014,8 +1022,8 @@ def serve_phases(cfg, seed, dev):
     p1 = check_kernel("bf16", semb, off_d, cidx, q, cfg["cap"], dev,
                       cfg["kernel_reps"])
     q8 = (q.float() / scale).to(torch.bfloat16)
-    check_kernel("int8", semb_i8, off_d, cidx, q8, cfg["cap"], dev,
-                 cfg["kernel_reps"])
+    p1_i8 = check_kernel("int8", semb_i8, off_d, cidx, q8, cfg["cap"], dev,
+                         cfg["kernel_reps"])
     # the v2 kernel's path: the A/B entry point, over the int8 corpus
     reset_counts()
     prof = profile_bucket.profile(semb_i8, off_d, cidx, q8, cfg["cap"],
@@ -1089,9 +1097,8 @@ def serve_phases(cfg, seed, dev):
     # ---- phase 3: int8 corpus ------------------------------------------
     index8 = index._replace(sorted_emb=semb_i8)
     server8 = BucketServer(qtower, nci, index8, inv_scale=1.0 / scale, **kw)
-    cfg3 = dict(cfg, warmup=1, timed=1)
     reset_counts()
-    n_int8, last8 = run_path("3_int8", server8, over[:2], cfg3,
+    n_int8, last8 = run_path("3_int8", server8, over, cfg,
                              B.bucket_scores_v3)
     ids, m, ov, out8, (cidx8, q8s, ts8, tr8) = last8
     err8, n_sep8 = compare_pools("3_plain", (ts8, tr8),
@@ -1104,13 +1111,15 @@ def serve_phases(cfg, seed, dev):
     del server8
 
     # ---- phase 4: offline evaluation -----------------------------------
-    n_eval = eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8, scale,
-                        doc_cluster, offsets, doc_ids)
+    n_eval, n_4c = eval_phase(cfg, seed, dev, qtower, nci, index, semb_i8,
+                              scale, doc_cluster, offsets, doc_ids)
     emit(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     paths = {"v3": main_launches, "fused": n_fused, "v2": n_profile["v2"],
              "raw": n_raw}
-    return p1, paths, n_int8, n_eval, (qtower, nci)
+    int8_paths = {"v3": {"3_int8": n_int8, "4c_device_rerank": n_4c},
+                  "v2": {"1_profile_bucket": n_profile["v2"]}}
+    return p1, p1_i8, paths, int8_paths, n_eval, (qtower, nci)
 
 
 def run(cfg, seed):
@@ -1128,7 +1137,8 @@ def run(cfg, seed):
     emit(kernel_build_s=k.build_seconds, library=k.path.name,
          ptxas=sorted({ln.strip() for ln in k.build_log.splitlines()
                        if "registers" in ln or "spill" in ln}))
-    p1, paths, n_int8, n_eval, models = serve_phases(cfg, seed, dev)
+    p1, p1_i8, paths, int8_paths, n_eval, models = serve_phases(cfg, seed,
+                                                                dev)
     gc.collect()
     torch.cuda.empty_cache()
     n_build = build_phase(cfg, seed, dev, *models)
@@ -1150,8 +1160,13 @@ def run(cfg, seed):
             entry["launches"] += n_build
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build}
+        r8 = p1_i8[mode]
+        entry["int8"] = {k: r8[k] for k in (
+            "ms", "bound_ms", "bound_ms_valid_rows", "max_abs_err",
+            "plain_ms", "yardstick_ms") if k in r8}
+        entry["int8"]["launches_by_path"] = int8_paths.get(mode, {})
         kernels.append(entry)
-    emit(total_s=time.perf_counter() - t_start, int8_launches=n_int8,
+    emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,
          eval_launches=n_eval)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

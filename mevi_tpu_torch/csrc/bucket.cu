@@ -28,11 +28,44 @@
 // window the TPU kernels DMA, and need no slack rows past the last real
 // row.  Raw mode reads the whole clipped window: G * cap * d * itemsize.
 //
-// bucket_kernel (v3, fused, raw; simple and right first): one block per
-// (bucket, tile of kTile window slots); the query row is staged once in
-// shared memory as float32; each warp takes one slot at a time and its
-// lanes stream the row as 16-byte vectors (8 bf16, 4 f32 or 16 int8),
-// reduced with warp shuffles; lane 0 writes the score and row id.
+// bucket_kernel, bf16 and f32 corpora (v3, fused, raw; simple and right
+// first): one block per (bucket, tile of kTile window slots); the query
+// row is staged once in shared memory as float32; each warp takes one
+// slot at a time and its lanes stream the row as 16-byte vectors (8 bf16
+// or 4 f32), reduced with warp shuffles; lane 0 writes the score and row
+// id.
+//
+// bucket_kernel, int8 corpora (the overload on const int8_t*).  At one
+// byte an element, the one-row-per-warp loop above is bound by latency
+// and issue, not bytes: a warp holds one 768-byte row in flight and
+// waits out a shuffle tree and a store per row, each corpus vector
+// re-reads 16 query floats from shared memory, and each byte costs an
+// extract and an I2F (a quarter of the FMA rate).  The int8 design:
+//   1. rows in flight, query in registers: one block per bucket; a row is
+//      split over a group of `lanes` lanes (16 at d = 768, 3 vectors a
+//      lane), and each lane's source issues the loads of R = 4 rows before
+//      any arithmetic, so a warp can have 8 rows (6 KB) in flight.  The
+//      lane-to-vector map is fixed, so the lane's query slice (48 floats)
+//      is loaded into registers once a bucket.  One transposed butterfly
+//      reduces the R partial sums (R - 1 + log2(lanes / R) shuffles, 5
+//      for 4 rows) and leaves each row's sum on a lane of its own; those
+//      lanes store a warp's R * 32 / lanes contiguous slots with one
+//      instruction (32 bytes at d = 768), so no lane-0 stores and no
+//      staging in shared memory.  The query slice fits 128 registers for
+//      d <= 2048 (V <= 4 vectors a lane, i8_vectors); past that (V = 0)
+//      the row is taken in chunks of 4 vectors a lane and the query read
+//      from shared memory, in the same kernel.
+//   2. exact widening without I2F: byte b ^ 0x80 = b + 128 goes into the
+//      low mantissa byte of 2^23 with one PRMT, and an FADD of -(2^23 +
+//      128) leaves b exactly, so the scores equal the I2F ones up to the
+//      order of the float32 sums.
+//   3. outputs: all threads write the invalid slots first, coalesced, and
+//      an empty bucket exits after that fill; the warps then visit only
+//      the valid slots.
+// Occupancy: __launch_bounds__(256, 2) caps a thread at 128 registers
+// (d = 768: 112, no spills), so 16 warps an SM.  Under that cap ptxas
+// keeps 5 of a lane's 12 loads at d = 768 ahead of the first FMA and
+// interleaves the other 7 with the arithmetic.
 //
 // bucket_kernel_v2 (the design v2 set out to have on the TPU: this
 // tile's compute overlaps the next tile's copy): one block per bucket
@@ -50,7 +83,9 @@
 // threads, coalesced.
 //
 // Left for later work: wgmma, TMA bulk copies, L2 reuse of hot clusters
-// shared by several queries, a persistent grid, coalesced score writes.
+// shared by several queries, a persistent grid, the int8 design above for
+// v2's int8 instance and coalesced score writes for the bf16 and f32
+// loops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -180,16 +215,12 @@ __device__ __forceinline__ float reduce_rows(float (&acc)[R], int l,
   return acc[0];
 }
 
-// bucket_kernel for an int8 corpus, one block per bucket (the overload
-// on const int8_t*; its template arguments are the query type, the mode
-// and V).  Window slots [j0, j1) hold the rows to score; masked modes
-// fill the other slots first.  A warp's lanes form groups of `lanes`
-// lanes, one row per group; each lane loads R rows' vectors k = l,
-// l + lanes, ... before any arithmetic, so a warp has R * 32 / lanes rows
-// in flight (8 rows, 6 KB at d = 768).  V > 0: the lane's query slice (V
-// vectors x 16 floats) sits in registers for the whole bucket; V == 0
-// (d > 2048): the row is taken in chunks of 4 vectors a lane and the
-// query is read from shared memory.
+// bucket_kernel for an int8 corpus, one block per bucket (design in the
+// note at the head of the file).  V: vectors a lane holds, the query
+// slice in registers (1-4), or 0 for the query in shared memory.  Window
+// slots [j0, j1) hold the rows to score; masked modes fill the others
+// first.  Lane l of group grp takes vectors k = l, l + lanes, ... of the
+// rows of slots jb + r * groups + grp, r < R.
 template <typename Q, int kMode, int V>
 __global__ void __launch_bounds__(kThreads, 2)
 bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
@@ -214,9 +245,18 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
   int* out_r = (kMode == kRaw) ? nullptr : rows + static_cast<size_t>(g) * cap;
   constexpr int kV = V > 0 ? V : 4;        // vectors a lane takes per chunk
   constexpr int R = kV >= 4 ? 2 : 4;       // rows in flight per lane group
-  const int j0 = 0, j1 = cap;
-  const int v0 = kMode == kRaw ? 0 : max(s, al) - al;
-  const int v1 = kMode == kRaw ? cap : min(e, al + cap) - al;
+  int j0 = 0, j1 = cap;
+  if (kMode != kRaw) {                     // invalid slots, coalesced
+    j0 = max(s, al) - al;
+    j1 = max(min(e, al + cap) - al, j0);
+    for (int j = threadIdx.x; j < cap; j += kThreads) {
+      if (j < j0 || j >= j1) {
+        out_s[j] = kNeg;
+        out_r[j] = -1;
+      }
+    }
+    if (j0 >= j1) return;                  // uniform across the block
+  }
   for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = to_f32(qrow[i]);
   __syncthreads();
 
@@ -240,7 +280,7 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = jb + r * groups + grp;
-      ok[r] = j >= v0 && j < v1;
+      ok[r] = j < j1;
       long long row = static_cast<long long>(al) + j;
       if (kMode == kRaw) row = min(row, n_rows - 1);
       src[r] = reinterpret_cast<const uint4*>(
@@ -272,9 +312,8 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
     if ((l & (lanes / R - 1)) == 0) {      // one writer lane per row
       const int j = jb + (l * R / lanes) * groups + grp;
       if (j < j1) {
-        const bool valid = j >= v0 && j < v1;
-        out_s[j] = valid ? sum : kNeg;
-        if (kMode != kRaw) out_r[j] = valid ? al + j : -1;
+        out_s[j] = sum;
+        if (kMode != kRaw) out_r[j] = al + j;
       }
     }
   }
