@@ -30,8 +30,9 @@ Phases:
      beams, cap 4096, pool 1000) of 1,024 queries at batch 512 over the
      bf16 index; coarse metrics against a plain recomputation; host
      streaming over a host copy of the int8 corpus against the device
-     reranker (v3 over the int8 corpus, its launches counted); ``eval_all_documents`` on the device against the
-     host-streamed scan; the result tsvs written and read back;
+     reranker (v3 over the int8 corpus, its launches counted);
+     ``eval_all_documents`` on the device against the host-streamed
+     scan; the result tsvs written and read back;
   5. the index build, after phases 1-4's corpus is freed:
      ``build_rq_index`` of ``configs/marco_rq4x5.json`` (4 levels x 32,
      l2, 25 Lloyd iterations, seed 42, bf16 serving copy) over
@@ -59,6 +60,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -101,6 +104,32 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """One entry per compiled kernel of ``nvcc -Xptxas -v``'s output:
+    name and corpus pointer type (demangled where ``c++filt`` is
+    present), registers, spill bytes (stores + loads).  Empty when the
+    library was built by an earlier process."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append({"kernel": m.group(1)})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and out:
+            out[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e["kernel"] for e in out), capture_output=True, text=True).stdout
+        for e, n in zip(out, names.splitlines()):
+            head, _, args = n.replace("(anonymous namespace)::", "").partition(
+                "(")           # keep the corpus pointer: the int8 overload
+            e["kernel"] = f"{head}({args.split(',')[0]}, ...)"
+    return out
 
 
 def timed_ms(fn, reps):
@@ -1135,8 +1164,7 @@ def run(cfg, seed):
          device=torch.cuda.get_device_name(0))
     k = B.build_kernel()
     emit(kernel_build_s=k.build_seconds, library=k.path.name,
-         ptxas=sorted({ln.strip() for ln in k.build_log.splitlines()
-                       if "registers" in ln or "spill" in ln}))
+         ptxas=ptxas_summary(k.build_log))
     p1, p1_i8, paths, int8_paths, n_eval, models = serve_phases(cfg, seed,
                                                                 dev)
     gc.collect()
@@ -1162,8 +1190,8 @@ def run(cfg, seed):
                                          "index_build_serve": n_build}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
-            "ms", "bound_ms", "bound_ms_valid_rows", "max_abs_err",
-            "plain_ms", "yardstick_ms") if k in r8}
+            "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
+            "max_abs_err", "plain_ms", "yardstick_ms") if k in r8}
         entry["int8"]["launches_by_path"] = int8_paths.get(mode, {})
         kernels.append(entry)
     emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,

@@ -557,17 +557,16 @@ cudaError_t launch(const void* semb, int d, long long n_rows,
                    cudaStream_t stream) {
   const T* e = static_cast<const T*>(semb);
   const Q* q = static_cast<const Q*>(qemb);
-  const int* none = nullptr;
   if (raw) {
-    launch_mode<T, Q, kRaw>(G, cap, d, stream, e, d, n_rows, starts, none,
-                            none, none, q, cap, 1, scores,
-                            static_cast<int*>(nullptr));
+    launch_mode<T, Q, kRaw>(G, cap, d, stream, e, d, n_rows, starts, nullptr,
+                            nullptr, nullptr, q, cap, 1, scores, nullptr);
   } else if (offsets != nullptr) {
-    launch_mode<T, Q, kFused>(G, cap, d, stream, e, d, n_rows, none, none,
-                              offsets, cidx, q, cap, align, scores, rows);
+    launch_mode<T, Q, kFused>(G, cap, d, stream, e, d, n_rows, nullptr,
+                              nullptr, offsets, cidx, q, cap, align, scores,
+                              rows);
   } else {
     launch_mode<T, Q, kBounds>(G, cap, d, stream, e, d, n_rows, starts, ends,
-                               none, none, q, cap, align, scores, rows);
+                               nullptr, nullptr, q, cap, align, scores, rows);
   }
   return cudaGetLastError();
 }
