@@ -5,7 +5,10 @@ holds each against its plain PyTorch version, serves batches end to end
 and runs the offline evaluation at full width over an MS MARCO-scale
 corpus.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phase1-only]
+
+``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
+result line: the kernel A/B at phase-1 geometry.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -72,8 +75,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 FULL = dict(ndocs=8_841_823, d=768, kary=32, levels=4, nonempty=305_777,
             sigma=1.9, batch=512, qlen=32, beams=10, cap=512, pool=1000,
             length_penalty=0.8, warmup=2, timed=5, kernel_reps=20,
@@ -202,50 +203,12 @@ def phase1_cidx(rng, doc_cluster, offsets, G):
 # phase 1: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _unique(lo, hi):
-    """Rows covered by the union of the [lo, hi) ranges."""
-    keep = hi > lo
-    if not keep.any():
-        return 0
-    mark = np.zeros(int(hi.max()) + 2, np.int64)
-    np.add.at(mark, lo[keep], 1)
-    np.add.at(mark, hi[keep], -1)
-    return int((np.cumsum(mark) > 0).sum())
-
-
-def bytes_of(starts, ends, cap, d, item, G, n_rows):
-    """Bytes each mode must move: corpus rows read + G*d bf16 query bytes
-    + outputs (masked modes G*cap*8: scores and rows; raw G*cap*4).
-    Masked: full window, valid rows, unique valid rows; raw: full
-    window, unique window rows (clipped at N - 1)."""
-    s = starts.astype(np.int64)
-    e = ends.astype(np.int64)
-    al = (s // 8) * 8
-    lo, hi = s, np.minimum(e, al + cap)
-    valid = np.maximum(hi - lo, 0)
-    q_bytes = G * d * 2
-    full = G * cap * d * item
-    masked_out = q_bytes + G * cap * 8
-    raw_out = q_bytes + G * cap * 4
-    return {"full_window": full + masked_out,
-            "valid_rows": int(valid.sum()) * d * item + masked_out,
-            "unique_rows": _unique(lo, hi) * d * item + masked_out,
-            "raw_full_window": full + raw_out,
-            "raw_unique_rows": _unique(al, np.minimum(al + cap, n_rows))
-            * d * item + raw_out}
-
-
-def bound_ms(nbytes, flops):
-    """The larger of bytes over the HBM rate and flops over the bf16
-    tensor peak, in ms."""
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-
-
 def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
     """Every mode against its plain version on the phase-1 buckets;
     kernel ms timed at the launch alone (the wrappers' bounds check, a
     host sync, stays out)."""
     from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.scripts.profile_bucket import bound_ms, bytes_of
     ci = cidx.long()
     st, en = off_d[ci].contiguous(), off_d[ci + 1].contiguous()
     al = B.align_down(st)
@@ -293,7 +256,7 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
         return torch.bmm(block, q.unsqueeze(-1))
     yard_ms = timed_ms(yardstick, 5)
     nb = bytes_of(st.cpu().numpy(), en.cpu().numpy(), cap, d,
-                  semb.element_size(), G, semb.shape[0])
+                  semb.element_size(), G, semb.shape[0], q.element_size())
     n_valid = int(ok.sum())
     flops_valid, flops_full = 2.0 * n_valid * d, 2.0 * G * cap * d
     for mode, r in results.items():
@@ -865,6 +828,7 @@ def profile_lloyd(emb, arts, dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mevi_tpu_torch.ops.kmeans import kmeans_assign, kmeans_stats
+    from mevi_tpu_torch.scripts.profile_bucket import bound_ms
     c = torch.from_numpy(arts.codebooks[0]).to(dev)
     kmeans_stats(emb[:1 << 16], kmeans_assign(emb[:1 << 16], c), c.shape[0])
     torch.cuda.synchronize()
@@ -1018,12 +982,12 @@ def build_phase(cfg, seed, dev, qtower, nci):
     return n_build
 
 
-def serve_phases(cfg, seed, dev):
+def serve_phases(cfg, seed, dev, phase1_only=False):
     """Phases 1-4 over the corpus of :func:`make_corpus`.  Returns
     (phase-1 results, bf16 and int8, launches of each kernel on its
     path, launches on the int8 paths, evaluation launches, (qtower,
-    nci)); the corpus, its int8 copy and the servers are freed on
-    return."""
+    nci)), or None after phase 1 with ``phase1_only``; the corpus, its
+    int8 copy and the servers are freed on return."""
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.build import quantize_int8
     from mevi_tpu_torch.ops import bucket as B
@@ -1062,6 +1026,8 @@ def serve_phases(cfg, seed, dev):
         raise AssertionError("1: profile_bucket never launched v2")
     emit(phase="1_profile_bucket", corpus="int8", G=G, cap=cfg["cap"],
          reps=cfg["profile_reps"], launches=n_profile, **prof)
+    if phase1_only:
+        return None
 
     # ---- phase 2 -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1151,7 +1117,7 @@ def serve_phases(cfg, seed, dev):
     return p1, p1_i8, paths, int8_paths, n_eval, (qtower, nci)
 
 
-def run(cfg, seed):
+def run(cfg, seed, phase1_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -1165,6 +1131,11 @@ def run(cfg, seed):
     k = B.build_kernel()
     emit(kernel_build_s=k.build_seconds, library=k.path.name,
          ptxas=ptxas_summary(k.build_log))
+    if phase1_only:
+        serve_phases(cfg, seed, dev, phase1_only=True)
+        emit(total_s=time.perf_counter() - t_start)
+        print(card_line(), flush=True)
+        return 0
     p1, p1_i8, paths, int8_paths, n_eval, models = serve_phases(cfg, seed,
                                                                 dev)
     gc.collect()
@@ -1207,12 +1178,14 @@ def run(cfg, seed):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase1-only", action="store_true",
+                    help="build the kernels, run phase 1 and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    return run(FULL, args.seed)
+    return run(FULL, args.seed, args.phase1_only)
 
 
 if __name__ == "__main__":

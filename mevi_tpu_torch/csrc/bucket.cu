@@ -100,6 +100,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;             // window slots per block (bf16, f32)
 constexpr int kStageBytes = 32 << 10; // corpus bytes per v2 pipeline stage
 constexpr int kMaxStageRows = 64;
+constexpr int kStageBytesI8 = 24 << 10; // corpus bytes per int8 v2 stage
 constexpr float kNeg = -1e30f;
 constexpr int kBounds = 0, kFused = 1, kRaw = 2;
 
@@ -515,6 +516,134 @@ bucket_kernel_v2(const T* __restrict__ semb, int d,
   }
 }
 
+// v2 for an int8 corpus (the overload on const int8_t*): bucket_kernel's
+// int8 arithmetic fed from the 2-stage cp.async tiles above.  V: vectors
+// a lane holds, the query slice in registers (1-4), or 0 for the query
+// in shared memory; R rows a lane group scores at once (V2I8<V>).  The
+// stage holds a whole number of the block's rounds of kWarps * R *
+// groups rows where it can, so no warp sits out a tile's last round.
+template <int V>
+struct V2I8 {
+  static constexpr int kV = V > 0 ? V : 4;      // vectors a lane per chunk
+  static constexpr int R = 2;                   // rows a lane group
+  static constexpr int kBlocks = V == 4 ? 2 : 3;  // blocks an SM
+};
+
+template <typename Q, int V>
+__global__ void __launch_bounds__(kThreads, V2I8<V>::kBlocks)
+bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
+                 const int* __restrict__ starts, const int* __restrict__ ends,
+                 const Q* __restrict__ qemb, int cap, int align,
+                 int stage_rows_n, float* __restrict__ scores,
+                 int* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kV = V2I8<V>::kV;
+  constexpr int R = V2I8<V>::R;
+  float* qs = reinterpret_cast<float*>(smem);               // d floats
+  unsigned char* stage0 = smem + static_cast<size_t>(d) * sizeof(float);
+  const size_t stage_bytes = static_cast<size_t>(stage_rows_n) * d;
+
+  const int g = blockIdx.x;
+  const int s = starts[g];
+  const int e = ends[g];
+  const int al = (s / align) * align;
+  const int lo = max(s, al);
+  const int hi = min(e, al + cap);
+  const int nvalid = max(hi - lo, 0);
+  float* out_s = scores + static_cast<size_t>(g) * cap;
+  int* out_r = rows + static_cast<size_t>(g) * cap;
+
+  // invalid slots, coalesced, before anything else
+  for (int j = threadIdx.x; j < cap; j += kThreads) {
+    const int row = al + j;
+    if (row < lo || row >= hi) {
+      out_s[j] = kNeg;
+      out_r[j] = -1;
+    }
+  }
+  if (nvalid == 0) return;                 // uniform across the block
+
+  const int ntiles = (nvalid + stage_rows_n - 1) / stage_rows_n;
+  stage_rows(stage0, semb, lo, min(stage_rows_n, nvalid), d);
+  cp_async_commit();
+  const Q* qrow = qemb + static_cast<size_t>(g) * d;
+  for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = to_f32(qrow[i]);
+  __syncthreads();
+
+  const int nvec = d >> 4;
+  const int lanes = V > 0 ? i8_lanes(nvec) : 32;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (lanes - 1);        // lane within its group
+  const int groups = 32 / lanes;
+  const int grp = lane / lanes;
+  const int step = kV * lanes;             // vectors a chunk covers
+  float qf[V > 0 ? V : 1][16];
+  if (V > 0) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) query16(qf[i], qs, l + lanes * i, nvec);
+  }
+  const int per_warp = R * groups;         // rows a warp takes per round
+  for (int t = 0; t < ntiles; ++t) {
+    const int r0 = t * stage_rows_n;
+    const int nrows = min(stage_rows_n, nvalid - r0);
+    if (t + 1 < ntiles) {                  // stage t+1 while scoring t
+      const int r1 = r0 + stage_rows_n;
+      stage_rows(stage0 + ((t + 1) & 1) * stage_bytes, semb,
+                 static_cast<long long>(lo) + r1,
+                 min(stage_rows_n, nvalid - r1), d);
+      cp_async_commit();
+      cp_async_wait<1>();                  // all but tile t+1 have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // tile t visible to every warp
+    const unsigned char* st = stage0 + (t & 1) * stage_bytes;
+    for (int jb = (threadIdx.x >> 5) * per_warp; jb < nrows;
+         jb += kWarps * per_warp) {
+      const uint4* src[R];
+      bool ok[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = jb + r * groups + grp;
+        ok[r] = j < nrows;
+        src[r] = reinterpret_cast<const uint4*>(
+            st + static_cast<size_t>(ok[r] ? j : 0) * d);
+      }
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      for (int kb = l; kb < nvec; kb += step) {  // V > 0: one chunk
+        uint4 x[R][kV];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int i = 0; i < kV; ++i) {
+            const int k = kb + lanes * i;
+            x[r][i] = k < nvec ? src[r][k] : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+        for (int i = 0; i < kV; ++i) {
+          float qv[16];
+          if (V == 0) query16(qv, qs, kb + lanes * i, nvec);
+          const float* qp = V > 0 ? qf[V > 0 ? i : 0] : qv;
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = dot16_i8(x[r][i], qp, acc[r]);
+        }
+      }
+      const float sum = reduce_rows<R>(acc, l, lanes);
+      if ((l & (lanes / R - 1)) == 0) {    // one writer lane per row
+        const int j = jb + (l * R / lanes) * groups + grp;
+        if (j < nrows) {
+          const int row = lo + r0 + j;
+          out_s[row - al] = sum;
+          out_r[row - al] = row;
+        }
+      }
+    }
+    __syncthreads();                       // stage t&1 free for tile t+2
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -579,6 +708,58 @@ inline int v2_stage_rows(int row_bytes) {
   return max(1, min(kMaxStageRows, kStageBytes / row_bytes));
 }
 
+// int8 v2 launch: rows per stage are a whole number of the block's
+// rounds (kWarps * R * groups rows) inside kStageBytesI8 where a round
+// fits, else as many rows as fit.  At d = 768: 32 rows (24 KB) a stage,
+// 3 KB + 2 x 24 KB of shared memory a block.
+template <typename Q, int V>
+cudaError_t launch_v2_i8(const int8_t* semb, int d, const int* starts,
+                         const int* ends, const Q* qemb, int G, int cap,
+                         int align, float* scores, int* rows,
+                         cudaStream_t stream) {
+  const int groups = V > 0 ? 32 / i8_lanes(d / 16) : 1;
+  const int round = kWarps * V2I8<V>::R * groups;
+  const int fit = max(1, kStageBytesI8 / d);
+  const int nrows = fit >= round ? fit / round * round : fit;
+  const size_t smem = static_cast<size_t>(d) * sizeof(float) +
+                      2 * static_cast<size_t>(nrows) * d;
+  auto kernel = bucket_kernel_v2<Q, V>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<G, kThreads, smem, stream>>>(semb, d, starts, ends, qemb, cap,
+                                        align, nrows, scores, rows);
+  return cudaGetLastError();
+}
+
+// int8 v2: the instance for the vectors a lane holds (i8_vectors).
+template <typename Q>
+cudaError_t launch_v2_int8(const void* semb, int d, const int* starts,
+                           const int* ends, const void* qemb, int G, int cap,
+                           int align, float* scores, int* rows,
+                           cudaStream_t stream) {
+  const int8_t* e = static_cast<const int8_t*>(semb);
+  const Q* q = static_cast<const Q*>(qemb);
+  switch (i8_vectors(d / 16)) {
+    case 1:
+      return launch_v2_i8<Q, 1>(e, d, starts, ends, q, G, cap, align, scores,
+                                rows, stream);
+    case 2:
+      return launch_v2_i8<Q, 2>(e, d, starts, ends, q, G, cap, align, scores,
+                                rows, stream);
+    case 3:
+      return launch_v2_i8<Q, 3>(e, d, starts, ends, q, G, cap, align, scores,
+                                rows, stream);
+    case 4:
+      return launch_v2_i8<Q, 4>(e, d, starts, ends, q, G, cap, align, scores,
+                                rows, stream);
+    default:
+      return launch_v2_i8<Q, 0>(e, d, starts, ends, q, G, cap, align, scores,
+                                rows, stream);
+  }
+}
+
 template <typename T, typename Q>
 cudaError_t launch_v2(const void* semb, int d, const int* starts,
                       const int* ends, const void* qemb, int G, int cap,
@@ -627,7 +808,13 @@ struct Launch {
 template <typename T, typename Q>
 struct LaunchV2 {
   template <typename... Args>
-  static cudaError_t run(Args... args) { return launch_v2<T, Q>(args...); }
+  static cudaError_t run(Args... args) {
+    if constexpr (std::is_same<T, int8_t>::value) {
+      return launch_v2_int8<Q>(args...);
+    } else {
+      return launch_v2<T, Q>(args...);
+    }
+  }
 };
 
 }  // namespace

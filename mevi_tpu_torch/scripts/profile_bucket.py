@@ -6,13 +6,17 @@ draws G = 5,120 buckets doc-weighted, times each kernel mode with CUDA
 events (median of ``--reps`` launches, each between two events) and
 cross-checks their outputs: the masked modes (fused, v2, v3) give equal
 rows and scores within rtol 1e-4 / atol 1e-3 of the first one; raw
-scores equal v3's on v3's valid slots (same starts, aligned).
+scores equal v3's on v3's valid slots (same starts, aligned).  Beside
+each mode's ms it reports the bytes the mode must move and its bound
+(:func:`bytes_of`, :func:`bound_ms`; ``chip_smoke.py`` phase 1 uses the
+same arithmetic).
 
     python -m mevi_tpu_torch.scripts.profile_bucket [--ndoc N] [--d D]
         [--g G] [--cap CAP] [--reps R] [--kernels fused,v2,v3,raw]
         [--seed S] [--device cuda]
 
-Prints one JSON line: geometry, device name and ms per kernel.
+Prints one JSON line: geometry, device name, ms per kernel, and each
+kernel's bytes and bound.
 """
 
 from __future__ import annotations
@@ -29,6 +33,50 @@ from .. import resolve_device
 from ..ops import bucket as B
 
 KERNELS = ("fused", "v2", "v3", "raw")
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+
+
+def bound_ms(nbytes, flops):
+    """The larger of bytes over the HBM rate and flops over the bf16
+    tensor peak, in ms."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def _unique(lo, hi):
+    """Rows covered by the union of the [lo, hi) ranges."""
+    keep = hi > lo
+    if not keep.any():
+        return 0
+    mark = np.zeros(int(hi.max()) + 2, np.int64)
+    np.add.at(mark, lo[keep], 1)
+    np.add.at(mark, hi[keep], -1)
+    return int((np.cumsum(mark) > 0).sum())
+
+
+def bytes_of(starts, ends, cap, d, item, G, n_rows, q_item=2):
+    """Bytes each mode must move over aligned (``ALIGN``) windows: corpus
+    rows read + G*d query bytes + outputs (masked modes G*cap*8: scores
+    and rows; raw G*cap*4).  Masked: full window, valid rows, unique
+    valid rows; raw: full window, unique window rows (clipped at N - 1).
+    ``starts``/``ends`` are numpy arrays; ``valid_slots`` counts the
+    valid rows (the masked modes' flops are 2 * d a valid slot)."""
+    s = starts.astype(np.int64)
+    e = ends.astype(np.int64)
+    al = (s // B.ALIGN) * B.ALIGN
+    lo, hi = s, np.minimum(e, al + cap)
+    valid = np.maximum(hi - lo, 0)
+    q_bytes = G * d * q_item
+    full = G * cap * d * item
+    masked_out = q_bytes + G * cap * 8
+    raw_out = q_bytes + G * cap * 4
+    return {"full_window": full + masked_out,
+            "valid_rows": int(valid.sum()) * d * item + masked_out,
+            "unique_rows": _unique(lo, hi) * d * item + masked_out,
+            "raw_full_window": full + raw_out,
+            "raw_unique_rows": _unique(al, np.minimum(al + cap, n_rows))
+            * d * item + raw_out,
+            "valid_slots": int(valid.sum())}
 
 
 def _timed_ms(fn, reps: int, dev: torch.device) -> float:
@@ -60,8 +108,10 @@ def profile(semb, offsets, cidx, q, cap: int, kernels=KERNELS,
     q (G, d).  On the card each mode is timed at its launch alone (the
     wrappers' bounds check, a host sync, stays out); on the CPU the
     wrappers' plain versions are timed.  Returns {"device", "ms": {mode:
-    ms}, "agree": [modes checked]}; raises AssertionError if two modes
-    disagree."""
+    ms}, "bytes": {mode: bytes}, "bound_ms": {mode: ms}, "agree": [modes
+    checked]}: masked modes with valid-row and unique-row bytes and
+    bounds, raw with unique-window ones; raises AssertionError if two
+    modes disagree."""
     dev = resolve_device(device)
     unknown = set(kernels) - set(KERNELS)
     if unknown:
@@ -99,9 +149,23 @@ def profile(semb, offsets, cidx, q, cap: int, kernels=KERNELS,
         ok = outs["v3"][1] >= 0
         torch.testing.assert_close(outs["raw"][ok], outs["v3"][0][ok],
                                    rtol=1e-4, atol=1e-3)
+    G, d = q.shape
+    nb = bytes_of(st.cpu().numpy(), en.cpu().numpy(), cap, d,
+                  semb.element_size(), G, semb.shape[0], q.element_size())
+    flops_valid, flops_full = 2.0 * nb["valid_slots"] * d, 2.0 * G * cap * d
+    nbytes, bounds = {}, {}
+    for name in kernels:
+        if name == "raw":
+            nbytes[name] = {"unique_window": nb["raw_unique_rows"]}
+            bounds[name] = {"unique_window": bound_ms(nb["raw_unique_rows"],
+                                                      flops_full)}
+        else:
+            nbytes[name] = {k: nb[k] for k in ("valid_rows", "unique_rows")}
+            bounds[name] = {k: bound_ms(nb[k], flops_valid)
+                            for k in ("valid_rows", "unique_rows")}
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    return {"device": name, "ms": ms,
+    return {"device": name, "ms": ms, "bytes": nbytes, "bound_ms": bounds,
             "agree": masked + (["raw"] if "raw" in outs and "v3" in outs
                                else [])}
 

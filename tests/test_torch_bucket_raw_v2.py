@@ -294,26 +294,67 @@ def _wide_case(dev, name, d=768, n=5003, cap=512, g=64):
     return semb, st, en, q, cap
 
 
+# int8 v2 beyond INT8_CASES, d 768 with exact float32 sums: one bucket,
+# fewer buckets than a persistent grid has blocks, and many more with
+# neighbours sharing a cluster; each over a CSR with one-row, empty and
+# over-cap clusters and one of 300 rows (a ragged last tile).
+V2_INT8_CASES = {"int8_v2_g1": 1, "int8_v2_g5": 5, "int8_v2_g1500": 1500}
+
+
+def v2_int8_case(name, dev, d=768, cap=512):
+    G = V2_INT8_CASES[name]
+    rng = np.random.default_rng(G)
+    sizes = rng.integers(0, 110, size=60)
+    sizes[:5] = [1, 0, 2 * cap + 5, 1, 300]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    emb = rng.integers(-128, 128, size=(int(offsets[-1]), d)).astype(np.int8)
+    ci = np.repeat(rng.integers(0, len(sizes), (G + 1) // 2), 2)[:G]
+    ci[:5] = [2, 0, 1, 4, 3][:G]
+    q = rng.integers(-32, 33, size=(G, d)) / 8
+    return (torch.from_numpy(emb).to(dev),
+            torch.from_numpy(offsets[ci]).to(dev),
+            torch.from_numpy(offsets[ci + 1]).to(dev),
+            torch.from_numpy(q.astype(np.float32)).to(dev, torch.bfloat16),
+            cap)
+
+
+V2_CASES = ([(wide, name) for wide in (False, True) for name in DTYPES]
+            + [(False, name) for name in list(INT8_CASES)
+               + list(V2_INT8_CASES)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(DTYPES))
-@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize(
+    "wide,name", V2_CASES,
+    ids=[name if name.startswith("int8_") else f"{wide}-{name}"
+         for wide, name in V2_CASES])
 @pytest.mark.parametrize("align", [8, 1])
 def test_cuda_v2_matches_plain(case, cuda_device, name, wide, align):
-    if wide:
+    """The int8 cases (``INT8_CASES`` and ``V2_INT8_CASES``: exact
+    float32 sums) must equal the plain version."""
+    tol = dict(rtol=0, atol=0)
+    if name in INT8_CASES:
+        semb, off, cit, q, cap = int8_case(name, cuda_device)
+        st = off[cit.long()].contiguous()
+        en = off[cit.long() + 1].contiguous()
+    elif name in V2_INT8_CASES:
+        semb, st, en, q, cap = v2_int8_case(name, cuda_device)
+    elif wide:
         semb, st, en, q, cap = _wide_case(cuda_device, name)
+        tol = dict(rtol=1e-4, atol=1e-3)
     else:
         offsets, emb, ci, qn = case
         semb = _torch_t(_corpus(emb, name)[:N], name).to(cuda_device)
         st, en = (torch.from_numpy(x).to(cuda_device)
                   for x in _bounds(offsets, ci))
         q = torch.from_numpy(qn).to(cuda_device, torch.bfloat16)
-        cap = CAP
+        cap, tol = CAP, dict(rtol=1e-4, atol=1e-3)
     ref = tb.bucket_scores_v2_plain(semb, st, en, q, cap, align)
     got = tb.bucket_scores_v2(semb, st, en, q, cap, align)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got[1].cpu().numpy(), ref[1].cpu().numpy())
     np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(),
-                               rtol=1e-4, atol=1e-3)
+                               **tol)
 
 
 RAW_CASES = ([(wide, name) for wide in (False, True) for name in DTYPES]
