@@ -100,7 +100,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;             // window slots per block (bf16, f32)
 constexpr int kStageBytes = 32 << 10; // corpus bytes per v2 pipeline stage
 constexpr int kMaxStageRows = 64;
-constexpr int kStageBytesI8 = 24 << 10; // corpus bytes per int8 v2 stage
+constexpr int kStageBytesI8 = 48 << 10; // corpus bytes per int8 v2 stage
 constexpr float kNeg = -1e30f;
 constexpr int kBounds = 0, kFused = 1, kRaw = 2;
 
@@ -525,8 +525,8 @@ bucket_kernel_v2(const T* __restrict__ semb, int d,
 template <int V>
 struct V2I8 {
   static constexpr int kV = V > 0 ? V : 4;      // vectors a lane per chunk
-  static constexpr int R = 2;                   // rows a lane group
-  static constexpr int kBlocks = V == 4 ? 2 : 3;  // blocks an SM
+  static constexpr int R = V == 4 ? 2 : 4;      // rows a lane group
+  static constexpr int kBlocks = 2;             // blocks an SM
 };
 
 template <typename Q, int V>
@@ -710,8 +710,8 @@ inline int v2_stage_rows(int row_bytes) {
 
 // int8 v2 launch: rows per stage are a whole number of the block's
 // rounds (kWarps * R * groups rows) inside kStageBytesI8 where a round
-// fits, else as many rows as fit.  At d = 768: 32 rows (24 KB) a stage,
-// 3 KB + 2 x 24 KB of shared memory a block.
+// fits, else as many rows as fit.  At d = 768: 64 rows (48 KB) a stage,
+// 3 KB + 2 x 48 KB of shared memory a block.
 template <typename Q, int V>
 cudaError_t launch_v2_i8(const int8_t* semb, int d, const int* starts,
                          const int* ends, const Q* qemb, int G, int cap,
