@@ -100,7 +100,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;             // window slots per block (bf16, f32)
 constexpr int kStageBytes = 32 << 10; // corpus bytes per v2 pipeline stage
 constexpr int kMaxStageRows = 64;
-constexpr int kStageBytesI8 = 24 << 10; // corpus bytes per int8 v2 tile
+constexpr int kStageBytesI8 = 48 << 10; // corpus bytes per int8 v2 stage
 constexpr float kNeg = -1e30f;
 constexpr int kBounds = 0, kFused = 1, kRaw = 2;
 
@@ -516,285 +516,131 @@ bucket_kernel_v2(const T* __restrict__ semb, int d,
   }
 }
 
-// ---------------------------------------------------------------------------
-// v2, int8 corpus: a ring of bulk-copied tiles across a persistent walk
-// over the buckets
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Arrive and add `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// 1-D bulk copy (TMA, no tensor map): `bytes` (a multiple of 16) from
-// 16-byte aligned global memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// 16 query floats of vector k out of a bf16 row in shared memory (zeros
-// past the row).
-__device__ __forceinline__ void query16(float (&out)[16],
-                                        const __nv_bfloat16* qs, int k,
-                                        int nvec) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint4 v = k < nvec ? reinterpret_cast<const uint4*>(qs)[2 * k + h]
-                             : make_uint4(0u, 0u, 0u, 0u);
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(b[i]);
-      out[8 * h + 2 * i] = f.x;
-      out[8 * h + 2 * i + 1] = f.y;
-    }
-  }
-}
-
-// Tiling of the int8 v2 kernel.  V: vectors a lane holds, the query slice
-// in registers (1-4), or 0 for the query read from shared memory; R rows
-// a lane group scores at once; kStages tiles in the ring; kCGroups
-// consumer groups, tile t going to group t % kCGroups; kBlocks blocks an
-// SM.  A tile holds a whole number of a group's rounds of kWarps /
-// kCGroups * R * groups rows where it can, so no warp sits out a tile's
-// last round.
+// v2 for an int8 corpus (the overload on const int8_t*): bucket_kernel's
+// int8 arithmetic fed from the 2-stage cp.async tiles above.  V: vectors
+// a lane holds, the query slice in registers (1-4), or 0 for the query
+// in shared memory; R rows a lane group scores at once (V2I8<V>).  The
+// stage holds a whole number of the block's rounds of kWarps * R *
+// groups rows where it can, so no warp sits out a tile's last round.
 template <int V>
 struct V2I8 {
   static constexpr int kV = V > 0 ? V : 4;      // vectors a lane per chunk
-  static constexpr int R = V == 4 ? 1 : 4;      // rows a lane group
-  static constexpr int kCGroups = 2;
-  static constexpr int kStages = 4;
-  static constexpr int kBlocks = 2;
+  static constexpr int R = V == 4 ? 2 : 4;      // rows a lane group
+  static constexpr int kBlocks = 2;             // blocks an SM
 };
-constexpr int kV2Threads = kThreads + 32;     // 8 consumer warps + producer
-constexpr int kV2Head = 256;                  // barriers and bucket slots
 
-__host__ __device__ inline size_t align128(size_t x) {
-  return (x + 127) & ~static_cast<size_t>(127);
-}
-
-// bucket_kernel_v2 for an int8 corpus (design in the note at the head of
-// the file).  A persistent grid: block b takes bucket b first, then the
-// next untaken one, gridDim.x + atomicAdd(work, 1), until none is left
-// (*work is 0 at launch).  Warp kWarps is the producer: it fills a
-// bucket's invalid slots, posts a bucket with valid rows to one of two
-// slots (bucket id and bounds, its query row bulk-copied beside them)
-// and bulk-copies its tiles of up to stage_rows_n rows into the
-// kStages-tile ring, waiting only for a slot or a stage to be released.
-// Warps 0 .. kWarps - 1 take the posted buckets in order and score each
-// tile of theirs with bucket_kernel's int8 arithmetic: lane l of lane
-// group grp takes vectors k = l, l + lanes, ... of the rows of slots jb
-// + r * groups + grp, r < R.  A bucket id of -1 ends the walk.
 template <typename Q, int V>
-__global__ void __launch_bounds__(kV2Threads, V2I8<V>::kBlocks)
+__global__ void __launch_bounds__(kThreads, V2I8<V>::kBlocks)
 bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
                  const int* __restrict__ starts, const int* __restrict__ ends,
-                 const Q* __restrict__ qemb, int G, int cap, int align,
+                 const Q* __restrict__ qemb, int cap, int align,
                  int stage_rows_n, float* __restrict__ scores,
-                 int* __restrict__ rows, int* __restrict__ work) {
-  using C = V2I8<V>;
-  constexpr int S = C::kStages;
-  constexpr int kV = C::kV;
-  constexpr int R = C::R;
-  constexpr int CG = C::kCGroups;
-  constexpr int kGW = kWarps / CG;         // warps a consumer group
-  static_assert((4 * S + 8) * 8 + 2 * 16 <= kV2Head, "head too small");
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // tile landed
-  uint64_t* empty = full + S;                           // tile scored
-  uint64_t* qfull = empty + S;                          // bucket posted
-  uint64_t* qempty = qfull + 2;                         // bucket done
-  int4* info = reinterpret_cast<int4*>(qempty + 2);     // {g, lo, al, n}
-  const size_t qstride = align128(static_cast<size_t>(d) * sizeof(Q));
-  const size_t sstride = align128(static_cast<size_t>(stage_rows_n) * d);
-  unsigned char* qbase = smem + kV2Head;
-  unsigned char* stage0 = qbase + 2 * qstride;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, kGW);
-    }
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(qfull + i, 32);
-      mbar_init(qempty + i, kWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+                 int* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kV = V2I8<V>::kV;
+  constexpr int R = V2I8<V>::R;
+  float* qs = reinterpret_cast<float*>(smem);               // d floats
+  unsigned char* stage0 = smem + static_cast<size_t>(d) * sizeof(float);
+  const size_t stage_bytes = static_cast<size_t>(stage_rows_n) * d;
 
-  if (warp == kWarps) {                    // the producer warp
-    const bool q_bulk = (reinterpret_cast<uintptr_t>(qemb) & 15) == 0;
-    const unsigned qbytes = static_cast<unsigned>(d * sizeof(Q));
-    const int nblk = gridDim.x;
-    int posted = 0, it = 0;                // buckets posted, tiles issued
-    for (int g = blockIdx.x; g < G;) {
-      int next = 0;                        // taken now, read at the end
-      if (lane == 0) next = nblk + atomicAdd(work, 1);
-      const int s = starts[g];
-      const int e = ends[g];
-      const int al = (s / align) * align;
-      const int lo = max(s, al);
-      const int hi = min(e, al + cap);
-      const int nvalid = max(hi - lo, 0);
-      float* out_s = scores + static_cast<size_t>(g) * cap;
-      int* out_r = rows + static_cast<size_t>(g) * cap;
-      for (int j = lane; j < cap; j += 32) {   // invalid slots
-        const int row = al + j;
-        if (row < lo || row >= hi) {
-          out_s[j] = kNeg;
-          out_r[j] = -1;
-        }
-      }
-      if (nvalid > 0) {
-        const int slot = posted & 1;
-        mbar_wait(qempty + slot, ((posted >> 1) & 1) ^ 1);
-        Q* qdst = reinterpret_cast<Q*>(qbase + slot * qstride);
-        const Q* qsrc = qemb + static_cast<size_t>(g) * d;
-        if (lane == 0) info[slot] = make_int4(g, lo, al, nvalid);
-        if (!q_bulk)
-          for (int i = lane; i < d; i += 32) qdst[i] = qsrc[i];
-        if (q_bulk && lane == 0) {
-          mbar_arrive_tx(qfull + slot, qbytes);
-          bulk_copy(qdst, qsrc, qbytes, qfull + slot);
-        } else {
-          mbar_arrive(qfull + slot);
-        }
-        ++posted;
-        if (lane == 0) {
-          for (int r0 = 0; r0 < nvalid; r0 += stage_rows_n, ++it) {
-            const int st = it % S;
-            mbar_wait(empty + st, ((it / S) & 1) ^ 1);
-            const unsigned bytes =
-                static_cast<unsigned>(min(stage_rows_n, nvalid - r0)) * d;
-            mbar_arrive_tx(full + st, bytes);
-            bulk_copy(stage0 + st * sstride,
-                      semb + static_cast<size_t>(lo + r0) * d, bytes,
-                      full + st);
-          }
-        }
-      }
-      g = __shfl_sync(0xffffffffu, next, 0);
+  const int g = blockIdx.x;
+  const int s = starts[g];
+  const int e = ends[g];
+  const int al = (s / align) * align;
+  const int lo = max(s, al);
+  const int hi = min(e, al + cap);
+  const int nvalid = max(hi - lo, 0);
+  float* out_s = scores + static_cast<size_t>(g) * cap;
+  int* out_r = rows + static_cast<size_t>(g) * cap;
+
+  // invalid slots, coalesced, before anything else
+  for (int j = threadIdx.x; j < cap; j += kThreads) {
+    const int row = al + j;
+    if (row < lo || row >= hi) {
+      out_s[j] = kNeg;
+      out_r[j] = -1;
     }
-    const int slot = posted & 1;           // the end of the walk
-    mbar_wait(qempty + slot, ((posted >> 1) & 1) ^ 1);
-    if (lane == 0) info[slot] = make_int4(-1, 0, 0, 0);
-    mbar_arrive(qfull + slot);
-    return;
   }
+  if (nvalid == 0) return;                 // uniform across the block
+
+  const int ntiles = (nvalid + stage_rows_n - 1) / stage_rows_n;
+  stage_rows(stage0, semb, lo, min(stage_rows_n, nvalid), d);
+  cp_async_commit();
+  const Q* qrow = qemb + static_cast<size_t>(g) * d;
+  for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = to_f32(qrow[i]);
+  __syncthreads();
 
   const int nvec = d >> 4;
   const int lanes = V > 0 ? i8_lanes(nvec) : 32;
+  const int lane = threadIdx.x & 31;
   const int l = lane & (lanes - 1);        // lane within its group
   const int groups = 32 / lanes;
   const int grp = lane / lanes;
   const int step = kV * lanes;             // vectors a chunk covers
+  float qf[V > 0 ? V : 1][16];
+  if (V > 0) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) query16(qf[i], qs, l + lanes * i, nvec);
+  }
   const int per_warp = R * groups;         // rows a warp takes per round
-  const int cg = warp / kGW;               // this warp's consumer group
-  const int wg = warp % kGW;               // warp within the group
-  int it = 0;                              // tiles consumed
-  for (int taken = 0;; ++taken) {
-    const int slot = taken & 1;
-    mbar_wait(qfull + slot, (taken >> 1) & 1);
-    const int4 b = info[slot];
-    if (b.x < 0) break;
-    const Q* qs = reinterpret_cast<const Q*>(qbase + slot * qstride);
-    float qf[V > 0 ? V : 1][16];
-    if (V > 0) {
-#pragma unroll
-      for (int i = 0; i < kV; ++i) query16(qf[i], qs, l + lanes * i, nvec);
+  for (int t = 0; t < ntiles; ++t) {
+    const int r0 = t * stage_rows_n;
+    const int nrows = min(stage_rows_n, nvalid - r0);
+    if (t + 1 < ntiles) {                  // stage t+1 while scoring t
+      const int r1 = r0 + stage_rows_n;
+      stage_rows(stage0 + ((t + 1) & 1) * stage_bytes, semb,
+                 static_cast<long long>(lo) + r1,
+                 min(stage_rows_n, nvalid - r1), d);
+      cp_async_commit();
+      cp_async_wait<1>();                  // all but tile t+1 have landed
+    } else {
+      cp_async_wait<0>();
     }
-    float* out_s = scores + static_cast<size_t>(b.x) * cap;
-    int* out_r = rows + static_cast<size_t>(b.x) * cap;
-    for (int r0 = 0; r0 < b.w; r0 += stage_rows_n, ++it) {
-      if (it % CG != cg) continue;         // the other groups' tile
-      const int st = it % S;
-      mbar_wait(full + st, (it / S) & 1);
-      const int nrows = min(stage_rows_n, b.w - r0);
-      const unsigned char* tile = stage0 + st * sstride;
-      for (int jb = wg * per_warp; jb < nrows; jb += kGW * per_warp) {
-        const uint4* src[R];
+    __syncthreads();                       // tile t visible to every warp
+    const unsigned char* st = stage0 + (t & 1) * stage_bytes;
+    for (int jb = (threadIdx.x >> 5) * per_warp; jb < nrows;
+         jb += kWarps * per_warp) {
+      const uint4* src[R];
+      bool ok[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int j = jb + r * groups + grp;
-          src[r] = reinterpret_cast<const uint4*>(
-              tile + static_cast<size_t>(j < nrows ? j : 0) * d);
-        }
-        float acc[R];
+      for (int r = 0; r < R; ++r) {
+        const int j = jb + r * groups + grp;
+        ok[r] = j < nrows;
+        src[r] = reinterpret_cast<const uint4*>(
+            st + static_cast<size_t>(ok[r] ? j : 0) * d);
+      }
+      float acc[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = 0.f;
-        for (int kb = l; kb < nvec; kb += step) {  // V > 0: one chunk
-          uint4 x[R][kV];
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      for (int kb = l; kb < nvec; kb += step) {  // V > 0: one chunk
+        uint4 x[R][kV];
 #pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int i = 0; i < kV; ++i) {
-              const int k = kb + lanes * i;
-              x[r][i] = k < nvec ? src[r][k] : make_uint4(0u, 0u, 0u, 0u);
-            }
+        for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int i = 0; i < kV; ++i) {
-            float qv[16];
-            if (V == 0) query16(qv, qs, kb + lanes * i, nvec);
-            const float* qp = V > 0 ? qf[V > 0 ? i : 0] : qv;
+            const int k = kb + lanes * i;
+            x[r][i] = k < nvec ? src[r][k] : make_uint4(0u, 0u, 0u, 0u);
+          }
 #pragma unroll
-            for (int r = 0; r < R; ++r)
-              acc[r] = dot16_i8(x[r][i], qp, acc[r]);
-          }
-        }
-        const float sum = reduce_rows<R>(acc, l, lanes);
-        if ((l & (lanes / R - 1)) == 0) {  // one writer lane per row
-          const int j = jb + (l * R / lanes) * groups + grp;
-          if (j < nrows) {
-            const int row = b.y + r0 + j;
-            out_s[row - b.z] = sum;
-            out_r[row - b.z] = row;
-          }
+        for (int i = 0; i < kV; ++i) {
+          float qv[16];
+          if (V == 0) query16(qv, qs, kb + lanes * i, nvec);
+          const float* qp = V > 0 ? qf[V > 0 ? i : 0] : qv;
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = dot16_i8(x[r][i], qp, acc[r]);
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + st);  // stage st free
+      const float sum = reduce_rows<R>(acc, l, lanes);
+      if ((l & (lanes / R - 1)) == 0) {    // one writer lane per row
+        const int j = jb + (l * R / lanes) * groups + grp;
+        if (j < nrows) {
+          const int row = lo + r0 + j;
+          out_s[row - al] = sum;
+          out_r[row - al] = row;
+        }
+      }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(qempty + slot);  // slot free
+    __syncthreads();                       // stage t&1 free for tile t+2
   }
 }
 
@@ -862,42 +708,28 @@ inline int v2_stage_rows(int row_bytes) {
   return max(1, min(kMaxStageRows, kStageBytes / row_bytes));
 }
 
-// int8 v2 launch: tiles of a whole number of a consumer group's rounds
-// (kWarps / kCGroups * R * groups rows) inside kStageBytesI8 where one fits,
-// else as many rows as fit (d = 768: 32 rows, 24 KB); shared memory for
-// the head, two query rows and kStages tiles (d = 768, bf16 queries:
-// ~99 KB); a persistent grid of as many blocks as fit the card at once,
-// at most G, taking buckets from the counter *work (zeroed here).
+// int8 v2 launch: rows per stage are a whole number of the block's
+// rounds (kWarps * R * groups rows) inside kStageBytesI8 where a round
+// fits, else as many rows as fit.  At d = 768: 64 rows (48 KB) a stage,
+// 3 KB + 2 x 48 KB of shared memory a block.
 template <typename Q, int V>
 cudaError_t launch_v2_i8(const int8_t* semb, int d, const int* starts,
                          const int* ends, const Q* qemb, int G, int cap,
-                         int align, float* scores, int* rows, int* work,
+                         int align, float* scores, int* rows,
                          cudaStream_t stream) {
-  using C = V2I8<V>;
   const int groups = V > 0 ? 32 / i8_lanes(d / 16) : 1;
-  const int round = kWarps / C::kCGroups * C::R * groups;
+  const int round = kWarps * V2I8<V>::R * groups;
   const int fit = max(1, kStageBytesI8 / d);
   const int nrows = fit >= round ? fit / round * round : fit;
-  const size_t smem =
-      kV2Head + 2 * align128(static_cast<size_t>(d) * sizeof(Q)) +
-      C::kStages * align128(static_cast<size_t>(nrows) * d);
+  const size_t smem = static_cast<size_t>(d) * sizeof(float) +
+                      2 * static_cast<size_t>(nrows) * d;
   auto kernel = bucket_kernel_v2<Q, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kV2Threads, smem);
-  if (err != cudaSuccess) return err;
-  const int grid = min(G, max(1, per_sm) * sms);
-  if ((err = cudaMemsetAsync(work, 0, sizeof(int), stream)) != cudaSuccess)
-    return err;
-  kernel<<<grid, kV2Threads, smem, stream>>>(
-      semb, d, starts, ends, qemb, G, cap, align, nrows, scores, rows, work);
+  kernel<<<G, kThreads, smem, stream>>>(semb, d, starts, ends, qemb, cap,
+                                        align, nrows, scores, rows);
   return cudaGetLastError();
 }
 
@@ -905,33 +737,33 @@ cudaError_t launch_v2_i8(const int8_t* semb, int d, const int* starts,
 template <typename Q>
 cudaError_t launch_v2_int8(const void* semb, int d, const int* starts,
                            const int* ends, const void* qemb, int G, int cap,
-                           int align, float* scores, int* rows, int* work,
+                           int align, float* scores, int* rows,
                            cudaStream_t stream) {
   const int8_t* e = static_cast<const int8_t*>(semb);
   const Q* q = static_cast<const Q*>(qemb);
   switch (i8_vectors(d / 16)) {
     case 1:
       return launch_v2_i8<Q, 1>(e, d, starts, ends, q, G, cap, align, scores,
-                                rows, work, stream);
+                                rows, stream);
     case 2:
       return launch_v2_i8<Q, 2>(e, d, starts, ends, q, G, cap, align, scores,
-                                rows, work, stream);
+                                rows, stream);
     case 3:
       return launch_v2_i8<Q, 3>(e, d, starts, ends, q, G, cap, align, scores,
-                                rows, work, stream);
+                                rows, stream);
     case 4:
       return launch_v2_i8<Q, 4>(e, d, starts, ends, q, G, cap, align, scores,
-                                rows, work, stream);
+                                rows, stream);
     default:
       return launch_v2_i8<Q, 0>(e, d, starts, ends, q, G, cap, align, scores,
-                                rows, work, stream);
+                                rows, stream);
   }
 }
 
 template <typename T, typename Q>
 cudaError_t launch_v2(const void* semb, int d, const int* starts,
                       const int* ends, const void* qemb, int G, int cap,
-                      int align, float* scores, int* rows, int* /*work*/,
+                      int align, float* scores, int* rows,
                       cudaStream_t stream) {
   const int row_bytes = d * static_cast<int>(sizeof(T));
   const int nrows = v2_stage_rows(row_bytes);
@@ -1017,15 +849,14 @@ extern "C" int mevi_bucket_scores_raw(const void* semb, int semb_dtype,
       static_cast<int*>(nullptr), static_cast<cudaStream_t>(stream));
 }
 
-// v2 pipelined: v3's contract, starts/ends given; `work` is one int of
-// device scratch (the int8 kernel's bucket counter).
+// v2 pipelined: v3's contract, starts/ends given.
 extern "C" int mevi_bucket_scores_v2(const void* semb, int semb_dtype, int d,
                                      const int* starts, const int* ends,
                                      const void* qemb, int q_dtype, int G,
                                      int cap, int align, float* scores,
-                                     int* rows, int* work, void* stream) {
+                                     int* rows, void* stream) {
   return dispatch<LaunchV2>(semb_dtype, q_dtype, semb, d, starts, ends, qemb,
-                            G, cap, align, scores, rows, work,
+                            G, cap, align, scores, rows,
                             static_cast<cudaStream_t>(stream));
 }
 

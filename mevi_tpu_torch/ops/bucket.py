@@ -164,7 +164,7 @@ def build_kernel() -> KernelLibrary:
                                            i, i, i, p, p]
     lib.mevi_bucket_scores_raw.restype = i
     lib.mevi_bucket_scores_v2.argtypes = [p, i, i, p, p, p, i, i, i, i, p,
-                                          p, p, p]
+                                          p, p]
     lib.mevi_bucket_scores_v2.restype = i
     lib.mevi_cuda_error_string.argtypes = [i]
     lib.mevi_cuda_error_string.restype = ctypes.c_char_p
@@ -237,12 +237,11 @@ def _launch_v2(semb, starts, ends, qemb, cap, align):
     if G == 0:
         return scores, rows
     lib = build_kernel().lib
-    work = torch.empty(1, dtype=torch.int32, device=semb.device)
     _raise_on(lib, lib.mevi_bucket_scores_v2(
         semb.data_ptr(), _SEMB_CODES[semb.dtype], semb.shape[1],
         starts.data_ptr(), ends.data_ptr(), qemb.data_ptr(),
         _Q_CODES[qemb.dtype], G, cap, align, scores.data_ptr(),
-        rows.data_ptr(), work.data_ptr(), _stream(semb)))
+        rows.data_ptr(), _stream(semb)))
     return scores, rows
 
 
