@@ -67,25 +67,37 @@
 // keeps 5 of a lane's 12 loads at d = 768 ahead of the first FMA and
 // interleaves the other 7 with the arithmetic.
 //
-// bucket_kernel_v2 (the design v2 set out to have on the TPU: this
-// tile's compute overlaps the next tile's copy): one block per bucket
-// loops over tiles of valid rows with a 2-stage cp.async pipeline
-// (16-byte cp.async.cg, commit_group / wait_group): tile t + 1 is copied
-// into shared memory while the warps score tile t out of shared memory.
-// cp.async rather than TMA: a tile is a few contiguous rows at an
-// arbitrary row offset, which 16-byte cp.async covers with no tensor map
-// and no mbarrier bookkeeping; TMA bulk copies are a later option.  The
-// query is staged as float32 in a lane-major layout (float4 m of vector
-// k at [m * nvec + k]), so a lane reads both its corpus vector and its
-// query values as contiguous 16-byte words with no bank conflicts
-// (bucket_kernel's lanes read the query kEpv floats apart, which puts
-// several lanes on one bank).  Invalid slots are written first, by all
-// threads, coalesced.
+// bucket_kernel_v2 (replaces _kernel_v2, mevi_tpu/ops/bucket.py:206; the
+// design v2 set out to have on the TPU: this tile's compute overlaps the
+// next tile's copy): one block per bucket loops over tiles of valid rows
+// with a 2-stage cp.async pipeline (16-byte cp.async.cg, commit_group /
+// wait_group): tile t + 1 is copied into shared memory while the warps
+// score tile t out of shared memory.  cp.async rather than TMA: a tile is
+// a few contiguous rows at an arbitrary row offset, which 16-byte
+// cp.async covers with no tensor map and no mbarrier bookkeeping.
+// Invalid slots are written first, by all threads, coalesced.
+//   bf16 and f32 corpora: each warp takes one row at a time; the query is
+//   staged as float32 in a lane-major layout (float4 m of vector k at
+//   [m * nvec + k]), so a lane reads both its corpus vector and its query
+//   values as contiguous 16-byte words with no bank conflicts.
+//   int8 corpora (the overload on const int8_t*; bound by the valid rows'
+//   bytes at 3.35 TB/s, like the masked bucket_kernel): the row-per-warp
+//   loop re-read 64 bytes of query from shared memory per 16 corpus
+//   bytes and paid an I2F a byte, so it was bound by arithmetic, not by
+//   the copies.  Its design is bucket_kernel's int8 one fed from the
+//   stages: (1) a row split over a lane group (16 lanes x 3 vectors at
+//   d = 768), R = 4 rows a group with all R * V 16-byte shared loads
+//   before the arithmetic, the lane's query slice in registers for the
+//   whole bucket (in shared memory past d = 2048), PRMT + FADD widening,
+//   one transposed butterfly and writer-lane stores; (2) stages of a
+//   whole number of the block's rounds of 8 warps x R x groups rows
+//   (64 rows, 48 KB at d = 768), 2 blocks an SM.  A ring of 1-D bulk
+//   copies (TMA) across a persistent walk over the buckets, with a
+//   producer warp and full / empty mbarriers, measured no faster on an
+//   H100 (PERF.md), so the copies stay per-thread cp.async.
 //
-// Left for later work: wgmma, TMA bulk copies, L2 reuse of hot clusters
-// shared by several queries, a persistent grid, the int8 design above for
-// v2's int8 instance and coalesced score writes for the bf16 and f32
-// loops.
+// Left for later work: wgmma, L2 reuse of hot clusters shared by several
+// queries, and coalesced score writes for the bf16 and f32 loops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,14 +140,6 @@ __device__ __forceinline__ float dot16(const uint4& v, const float* q,
     acc = fmaf(f.x, q[2 * i], acc);
     acc = fmaf(f.y, q[2 * i + 1], acc);
   }
-  return acc;
-}
-__device__ __forceinline__ float dot16(const uint4& v, const float* q,
-                                       const int8_t*) {
-  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc = fmaf(static_cast<float>(c[i]), q[i], acc);
   return acc;
 }
 
@@ -601,13 +605,11 @@ bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
     for (int jb = (threadIdx.x >> 5) * per_warp; jb < nrows;
          jb += kWarps * per_warp) {
       const uint4* src[R];
-      bool ok[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int j = jb + r * groups + grp;
-        ok[r] = j < nrows;
         src[r] = reinterpret_cast<const uint4*>(
-            st + static_cast<size_t>(ok[r] ? j : 0) * d);
+            st + static_cast<size_t>(j < nrows ? j : 0) * d);
       }
       float acc[R];
 #pragma unroll
@@ -700,10 +702,10 @@ cudaError_t launch(const void* semb, int d, long long n_rows,
   return cudaGetLastError();
 }
 
-// Rows per v2 stage: as many as fit kStageBytes (at least 1, at most
-// kMaxStageRows).  At d = 768 that is 21 bf16, 42 int8 or 10 f32 rows,
-// so a block takes 3 KB + 2 x ~32 KB of shared memory and three blocks
-// fit an SM.
+// Rows per bf16 / f32 v2 stage: as many as fit kStageBytes (at least 1,
+// at most kMaxStageRows).  At d = 768 that is 21 bf16 or 10 f32 rows, so
+// a block takes 3 KB + 2 x ~32 KB of shared memory and three blocks fit
+// an SM.
 inline int v2_stage_rows(int row_bytes) {
   return max(1, min(kMaxStageRows, kStageBytes / row_bytes));
 }
