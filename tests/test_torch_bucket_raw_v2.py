@@ -295,9 +295,9 @@ def _wide_case(dev, name, d=768, n=5003, cap=512, g=64):
 
 
 # int8 v2 beyond INT8_CASES, d 768 with exact float32 sums: one bucket,
-# fewer buckets than a persistent grid has blocks, and many more with
-# neighbours sharing a cluster; each over a CSR with one-row, empty and
-# over-cap clusters and one of 300 rows (a ragged last tile).
+# five, and 1,500 with neighbours sharing a cluster; each over a CSR with
+# one-row, empty and over-cap clusters and one of 300 rows (a ragged last
+# stage).
 V2_INT8_CASES = {"int8_v2_g1": 1, "int8_v2_g5": 5, "int8_v2_g1500": 1500}
 
 
