@@ -5,10 +5,12 @@ holds each against its plain PyTorch version, serves batches end to end
 and runs the offline evaluation at full width over an MS MARCO-scale
 corpus.
 
-    python3 chip_smoke.py [--seed 0] [--phase1-only]
+    python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
-result line: the kernel A/B at phase-1 geometry.
+result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
+builds the kernels and the models and runs phase 6 alone, with no
+result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -49,7 +51,24 @@ Phases:
      ``BucketServer`` batch over the built index against the plain
      pool; then the ``center_levels`` build (full width when it keeps
      the phase under 300 s, else 1,048,576 rows) and (f)
-     ``hierarchical_kmeans_ids`` (k 30, c 30) on 65,536 rows.
+     ``hierarchical_kmeans_ids`` (k 30, c 30) on 65,536 rows;
+  6. ``bench.py``'s synthetic corpus at its TPU geometry, after phase 5
+     is freed (``data/synth.py``: 8,841,823 x 768, kary 32, 4 levels,
+     seed 0, query length 32): (a) tables and Zipf draws on the host, the
+     RQ fit on the card (500,000-row sample, 8 iterations), the CSR and
+     the bf16 cluster-sorted fill, timed, with peak memory and cluster
+     sizes; 65,536 sample rows held against ``gen_rows`` of their draws
+     and their codes against ``assign``; (b) batches of 512 of its query
+     language (2 warm-up, 5 timed) through ``BucketServer`` without and
+     with the PAWA prefix tables (their build time and bytes), the beams
+     of the two compared (and of a float32 copy of the NCI, each
+     decoder's scores held against an exact float32 panel rescoring),
+     one pool (gold-doc cluster first) against the plain bucket
+     version; (c) the int8 scale from the true maximum over every row,
+     the int8 fill after the bf16 one is freed, its sample rows and one
+     batch; (d) ``ceiling_report`` for 512 clean queries and 512 with
+     info dropout 0.3, with the seconds of each part; clean queries must
+     find their documents (recall@100 1.0, recall@1 up to duplicates).
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
@@ -92,6 +111,9 @@ BUILD = dict(config="configs/marco_rq4x5.json", seed=42, iters=25,
              adc_queries=512, adc_k=1000, hier_rows=65_536, hier_k=30,
              hier_c=30, hier_iters=10, center_budget_s=300.0,
              center_reduced_rows=1_048_576)
+SYNTH = dict(seed=0, fit_sample=500_000, fit_iters=8, check_rows=65_536,
+             ceiling_queries=512, ceiling_dropout=0.3, f32_tol=2e-5,
+             bf16_tie=2e-2)
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
 
@@ -419,7 +441,7 @@ def run_path(tag, server, batches, cfg, counter):
     return launches, last
 
 
-def profile_path(server, batches):
+def profile_path(server, batches, tag="2_profile"):
     """Device busy time, idle share and the top device kernels of served
     batches, from ``torch.profiler`` (CUPTI)."""
     from torch.autograd import DeviceType
@@ -438,7 +460,7 @@ def profile_path(server, batches):
                   key=lambda r: -r[1])
     n = len(batches)
     busy = sum(r[1] for r in kern)
-    emit(phase="2_profile", batches=n, wall_ms_per_batch=wall / n,
+    emit(phase=tag, batches=n, wall_ms_per_batch=wall / n,
          device_busy_ms_per_batch=busy / n,
          idle_share=1.0 - busy / wall if wall else None,
          device_kernels_per_batch=sum(r[2] for r in kern) / n,
@@ -715,15 +737,22 @@ def check_csr(tag, arts, n):
 
 def check_assign(tag, emb, arts, dev, rows):
     """(a) ``assign`` with the built codebooks (and shift tables) on the
-    first ``rows`` rows against the codes ``rq_train`` returned: at most
-    0.1% of rows may differ, each only where the top two similarities of
-    its first differing level are within 1e-3 relative."""
-    from mevi_tpu_torch.ops.rq import assign_with_logits
+    first ``rows`` rows against the codes ``rq_train`` returned (see
+    :func:`assign_agreement`)."""
     cbs = torch.from_numpy(arts.codebooks).to(dev)
     shift = (None if arts.prefix_shift is None else
              [torch.from_numpy(t).to(dev) for t in arts.prefix_shift])
-    codes, logits = assign_with_logits(emb[:rows], cbs, "rq", "l2", shift)
-    ref = torch.from_numpy(arts.codes[:rows]).to(dev)
+    return assign_agreement(tag, emb[:rows], cbs, shift,
+                            torch.from_numpy(arts.codes[:rows]).to(dev))
+
+
+def assign_agreement(tag, x, cbs, shift, ref):
+    """``assign`` of rows ``x`` against reference codes: at most 0.1% of
+    rows may differ, each only where the top two similarities of its
+    first differing level are within 1e-3 relative."""
+    from mevi_tpu_torch.ops.rq import assign_with_logits
+    rows = x.shape[0]
+    codes, logits = assign_with_logits(x, cbs, "rq", "l2", shift)
     diff = codes != ref
     bad = diff.any(-1).nonzero()[:, 0]
     n_diff = int(bad.numel())
@@ -982,6 +1011,316 @@ def build_phase(cfg, seed, dev, qtower, nci):
     return n_build
 
 
+# ---------------------------------------------------------------------------
+# phase 6: bench.py's synthetic corpus at full width
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def rescore_f32(nci32, ids, mask, codes, length_penalty, chunk=128):
+    """Length-normalised log-probs of given beams (B, nb, M) under a
+    float32 NCI, teacher-forced through the panel ``compact_logits``
+    (every position recomputed, PAWA net included: no tables)."""
+    from mevi_tpu_torch.models.nci import codes_to_tokens
+    B, nb, M = codes.shape
+    K = nci32.dims.kary
+    out = []
+    for s in range(0, B, chunk):
+        i, m = ids[s:s + chunk], mask[s:s + chunk]
+        c = codes[s:s + chunk].reshape(-1, M).long().to(ids.device)
+        enc = nci32.encode(i, m)
+        mem, mmask, _ = nci32.build_memory(enc, m)
+        zero = torch.zeros_like(c[:, :1])       # start token 0, EOS 1
+        dec_in = torch.cat([zero, codes_to_tokens(c, K), zero + 1], 1)
+        logits, _ = nci32.compact_logits(
+            dec_in, mem.repeat_interleave(nb, 0),
+            mmask.repeat_interleave(nb, 0))
+        logp = torch.log_softmax(logits.float(), -1)
+        tot = logp[:, :M].gather(2, c[..., None])[..., 0].sum(1) \
+            + logp[:, M, K]
+        out.append((tot / float(M + 1) ** length_penalty).reshape(-1, nb))
+    return torch.cat(out).cpu().numpy()
+
+
+def beams_diff(codes_a, scores_a, codes_b, scores_b):
+    """Beams whose codes differ between two decoders of the same queries,
+    and the gaps between the two beam scores there and elsewhere."""
+    differ = (np.asarray(codes_a) != np.asarray(codes_b)).any(-1)
+    gaps = np.abs(np.asarray(scores_a, np.float64)
+                  - np.asarray(scores_b, np.float64))
+    return {"beams": int(differ.size), "beams_differing": int(differ.sum()),
+            "queries_differing": int(differ.any(1).sum()),
+            "gaps_where_differing": sorted(
+                (float(g) for g in gaps[differ]), reverse=True)[:40],
+            "max_gap_where_equal": float(gaps[~differ].max())
+            if (~differ).any() else 0.0}
+
+
+def duplicate_stats(draws, gt, pool_n, kary):
+    """Per gold doc: how many docs share its 4 draws (identical rows), and
+    how many of them have a lower id."""
+    keys = (((draws[:, 0].astype(np.int64) * kary + draws[:, 1]) * kary
+             + draws[:, 2]) * pool_n + draws[:, 3])
+    ids = np.nonzero(np.isin(keys, keys[gt]))[0]
+    same = keys[ids][None, :] == keys[gt][:, None]
+    total = same.sum(1)
+    lower = (same & (ids[None, :] < gt[:, None])).sum(1)
+    return total, lower
+
+
+def synth_phase(cfg, seed, dev, qtower, nci):
+    """Phase 6 over ``bench.py``'s corpus (``data/synth.py``) at its TPU
+    geometry: (a) build it on the card and check a sample of its rows
+    and codes; (b) serve 512-query batches of its query language through
+    ``BucketServer`` without and with the PAWA prefix tables, compare
+    their beams (and a float32 copy's), hold one pool against the plain
+    bucket version; (c) the int8 copy, one batch; (d) the ceilings.
+    Returns the v3 launches: (served batches, int8 batch)."""
+    import copy
+    import dataclasses
+    from mevi_tpu_torch.data import synth
+    from mevi_tpu_torch.decode.beam import nci_beam_search_incremental
+    from mevi_tpu_torch.eval import ceiling
+    from mevi_tpu_torch.eval.searcher import FineIndex
+    from mevi_tpu_torch.index.csr import build_csr, pack_codes
+    from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.serve import BucketServer
+    S = SYNTH
+    t_phase = time.perf_counter()
+    K, M, cap, nb = cfg["kary"], cfg["levels"], cfg["cap"], cfg["beams"]
+    Bq, lp = cfg["batch"], cfg["length_penalty"]
+    spec = synth.SynthSpec(ndoc=cfg["ndocs"], d=cfg["d"], kary=K, levels=M,
+                           seed=S["seed"], qlen=cfg["qlen"])
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # ---- (a) the corpus ----------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    tab = timed("make_tables_s", lambda: synth.make_tables(spec))
+    draws = timed("make_draws_s", lambda: synth.make_draws(spec))
+    tables = synth.tables_to(tab, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cbs, codes = timed("fit_rq_codes_s", lambda: synth.fit_rq_codes(
+            spec, tables, draws, cache_base=tmp, fit_sample=S["fit_sample"],
+            iters=S["fit_iters"], device=dev))
+    offsets, doc_ids = timed("csr_s", lambda: build_csr(codes, K))
+    semb = timed("fill_bf16_s", lambda: synth.fill_sorted_matrix(
+        spec, tables, draws, doc_ids, n_pad_rows=cap + 8,
+        dtype=torch.bfloat16, device=dev))
+    emit(phase="6a_corpus", rows=spec.ndoc, d=spec.d,
+         buffer_rows=int(semb.shape[0]),
+         corpus_gb=semb.numel() * semb.element_size() / 1e9, seconds=secs,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+         allocated_gb_before=base_gb,
+         cluster_sizes=cluster_stats(offsets, cap))
+    rng = np.random.default_rng(seed + 61)
+    pick = np.sort(rng.choice(spec.ndoc, S["check_rows"], replace=False))
+    pick_d = torch.from_numpy(pick).to(dev)
+    sample_docs = doc_ids[pick]
+    ref = synth.gen_rows(tables, draws[sample_docs])
+    got = semb[pick_d].float()
+    want = ref.to(torch.bfloat16).float()
+    torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=0.0)
+    if semb[spec.ndoc:].abs().max() != 0:
+        raise AssertionError("6a: pad rows are not zero")
+    emit(phase="6a_checks", rows=S["check_rows"],
+         max_abs_err_vs_float32_row=float((got - ref).abs().max()),
+         elements_not_equal_to_bf16_of_row=int((got != want).sum()),
+         pad_rows_zero=True,
+         assign=assign_agreement("6a_assign", ref,
+                                 torch.from_numpy(cbs).to(dev), None,
+                                 torch.from_numpy(codes[sample_docs]).to(
+                                     dev)))
+
+    # ---- (b) serve, without and with the PAWA prefix tables -----------
+    index = FineIndex(torch.from_numpy(offsets).to(dev),
+                      torch.from_numpy(doc_ids).to(dev), semb, M, K,
+                      host_offsets=offsets, host_doc_ids=doc_ids)
+    kw = dict(num_beams=nb, cap=cap, pool=cfg["pool"], length_penalty=lp,
+              device=dev)
+    plain = BucketServer(qtower, nci, index, **kw)
+    with torch.inference_mode():
+        tabs = timed("pawa_tables_build_s",
+                     lambda: nci.pawa_prefix_tables(plain.level_tables))
+    leaves = (list(tabs["T"].values()) + [tabs["delta0"]]
+              + [x for e in [*tabs["KV"].values(), tabs["e0"]]
+                 for kv in e for x in kv])
+    tab_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    del tabs, leaves
+    tab_server = BucketServer(qtower, nci, index, pawa_tables=True, **kw)
+    if tab_server.pawa_tables is None:
+        raise AssertionError("6b: the PAWA prefix tables were not built")
+    mask = torch.ones((Bq, cfg["qlen"]), dtype=torch.int32, device=dev)
+
+    def query_batch():
+        gold = rng.integers(0, spec.ndoc, Bq)
+        tok = synth.query_tokens(spec, draws[gold], rng)
+        return torch.from_numpy(tok).to(dev), gold
+
+    t0 = time.perf_counter()
+    batches = [(query_batch()[0], mask, None)
+               for _ in range(cfg["warmup"] + cfg["timed"])]
+    secs["query_tokens_s"] = time.perf_counter() - t0
+    reset_counts()
+    n_plain, _ = run_path("6b_plain_beam", plain, batches, cfg,
+                          B.bucket_scores_v3)
+    n_tab, _ = run_path("6b_pawa_tables", tab_server, batches, cfg,
+                        B.bucket_scores_v3)
+    if B.bucket_scores_fused.launches:
+        raise AssertionError("6b: the v3 servers launched the fused mode")
+    # the two servers in turns on each timed batch (plain, tables,
+    # tables, plain): the coarse stage drifts between runs
+    turns = {"plain": [], "tables": []}
+    outs = []
+    for i, m, _ in batches[cfg["warmup"]:]:
+        got = {}
+        for name, srv in (("plain", plain), ("tables", tab_server),
+                          ("tables", tab_server), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = srv.finalize(srv.query_device(i, m))
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+            got.setdefault(name, o)
+        outs.append((got["plain"], got["tables"]))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    emit(phase="6b_in_turns", batches=cfg["timed"], runs_each=len(turns[
+        "plain"]), query_ms=med, queries_per_s={
+        k: Bq / (v * 1e-3) for k, v in med.items()},
+        tables_over_plain=med["tables"] / med["plain"],
+        query_ms_all=turns)
+    profile_path(plain, batches[-2:], "6b_profile_plain")
+    profile_path(tab_server, batches[-2:], "6b_profile_tables")
+    cp, sp, ct, st = (np.concatenate([o[j][k] for o in outs])
+                      for j, k in ((0, 2), (0, 3), (1, 2), (1, 3)))
+    diff16 = beams_diff(cp, sp, ct, st)
+    # the same beams in float32 (the weights upcast), and each decoder's
+    # beams rescored exactly by the float32 panel
+    ids0 = batches[cfg["warmup"]][0]
+    nci32 = copy.deepcopy(nci).float()
+    with torch.inference_mode():
+        lt32 = nci32.head_level_tables()
+        pt32 = nci32.pawa_prefix_tables(lt32)
+        c32p, s32p, _ = nci_beam_search_incremental(
+            nci32, ids0, mask, nb, lp, level_tables=lt32)
+        c32t, s32t, _ = nci_beam_search_incremental(
+            nci32, ids0, mask, nb, lp, level_tables=lt32, pawa_tables=pt32)
+    c32p, s32p, c32t, s32t = (x.cpu().numpy() for x in (c32p, s32p, c32t,
+                                                        s32t))
+    diff32 = beams_diff(c32p, s32p, c32t, s32t)
+    err32 = {"tables": float(np.abs(s32t - rescore_f32(
+        nci32, ids0, mask, torch.from_numpy(c32t), lp)).max()),
+        "plain": float(np.abs(s32p - rescore_f32(
+            nci32, ids0, mask, torch.from_numpy(c32p), lp)).max())}
+    err16 = {"tables": float(np.abs(st[:Bq] - rescore_f32(
+        nci32, ids0, mask, torch.from_numpy(ct[:Bq]), lp)).max()),
+        "plain": float(np.abs(sp[:Bq] - rescore_f32(
+            nci32, ids0, mask, torch.from_numpy(cp[:Bq]), lp)).max())}
+    del nci32, lt32, pt32
+    emit(phase="6b_beams", batches=cfg["timed"], bf16_servers=diff16,
+         float32_copy=diff32,
+         max_err_vs_float32_rescoring={"bf16": err16, "float32": err32},
+         pawa_tables_bytes=tab_bytes,
+         pawa_tables_build_s=secs["pawa_tables_build_s"],
+         query_tokens_s=secs["query_tokens_s"])
+    # the gates: in float32 the tables decoder is as close to the exact
+    # rescoring as the plain one (2e-5, the CPU parity tolerance) and
+    # equal beams score the same; in bf16 its error is within the bf16
+    # near-tie scale or within twice the plain decoder's own
+    if err32["tables"] > err32["plain"] + S["f32_tol"] or \
+            diff32["max_gap_where_equal"] > S["f32_tol"]:
+        raise AssertionError(f"6b: float32 tables beams off the plain "
+                             f"beams {err32} / {diff32}")
+    if err16["tables"] > S["bf16_tie"] and \
+            err16["tables"] > 2 * err16["plain"]:
+        raise AssertionError(f"6b: the tables server's bf16 scores are off "
+                             f"their exact rescoring by {err16}")
+
+    # one batch's pool against the plain bucket version; each query's
+    # first bucket is its gold doc's cluster, the others doc-weighted
+    cidx_doc = pack_codes(codes, K)
+    ids_g, gold = query_batch()
+    ov = cidx_doc[rng.integers(0, spec.ndoc, (Bq, nb))]
+    ov[:, 0] = cidx_doc[gold]
+    ov = torch.from_numpy(ov.reshape(-1)).to(dev)
+    ms, out, (cidx, q_rep, ts, tr) = serve_stages(tab_server, ids_g, mask, ov)
+    err, n_sep = compare_pools("6b_plain_bucket", (ts, tr),
+                               pool_with_plain(tab_server, cidx, q_rep, Bq))
+    fill, _ = check_outputs("6b_gold_override", out, cfg, Bq)
+    emit(phase="6b_plain_check", **ms, max_abs_pool_err=err,
+         ids_compared=n_sep, pool_filled=fill,
+         gold_in_pool=float((out[1] == gold[:, None]).any(1).mean()))
+    del plain, tab_server, index, semb, cidx, q_rep, ts, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) int8: the scale from the true maximum over every row ------
+    s_max = timed("abs_max_pass_s",
+                  lambda: synth.rows_abs_max(tables, draws, device=dev))
+    q_scale = 126.0 / s_max
+    semb8 = timed("fill_int8_s", lambda: synth.fill_sorted_matrix(
+        spec, tables, draws, doc_ids, n_pad_rows=cap + 8, dtype=torch.int8,
+        q_scale=q_scale, device=dev))
+    d8 = (semb8[pick_d].int() - synth.quantize_rows(ref, q_scale).int()).abs()
+    if int(d8.max()) > 1 or semb8[spec.ndoc:].abs().max() != 0:
+        raise AssertionError("6c: int8 rows off their quantized rows")
+    index8 = FineIndex(torch.from_numpy(offsets).to(dev),
+                       torch.from_numpy(doc_ids).to(dev), semb8, M, K,
+                       host_offsets=offsets, host_doc_ids=doc_ids)
+    server8 = BucketServer(qtower, nci, index8, inv_scale=1.0 / q_scale, **kw)
+    server8.finalize(server8.query_device(ids_g, mask, ov))      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ms8, out8, (cidx8, q8, ts8, tr8) = serve_stages(server8, ids_g, mask, ov)
+    n8 = read_counts()["v3"]
+    if n8 == 0:
+        raise AssertionError("6c: the v3 kernel never launched")
+    err8, n_sep8 = compare_pools("6c_plain_bucket", (ts8, tr8),
+                                 pool_with_plain(server8, cidx8, q8, Bq))
+    fill8, _ = check_outputs("6c_int8", out8, cfg, Bq)
+    emit(phase="6c_int8", int8_scale=q_scale, abs_max=s_max,
+         corpus_gb=semb8.numel() / 1e9,
+         seconds={k: secs[k] for k in ("abs_max_pass_s", "fill_int8_s")},
+         sample_rows_off_by_one=int((d8 > 0).sum()), **ms8,
+         queries_per_s=Bq / (sum(ms8.values()) * 1e-3), v3_launches=n8,
+         max_abs_pool_err=err8, ids_compared=n_sep8, pool_filled=fill8,
+         top1_agree_with_bf16=float((out8[1][:, 0] == out[1][:, 0]).mean()))
+    del server8, index8, semb8, cidx8, q8, ts8, tr8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the ceilings ----------------------------------------------
+    rng_c = np.random.default_rng(seed + 71)
+    for drop in (0.0, S["ceiling_dropout"]):
+        sp_d = dataclasses.replace(spec, info_dropout=drop)
+        gt = rng_c.integers(0, spec.ndoc, S["ceiling_queries"])
+        tok = synth.query_tokens(sp_d, draws[gt], rng_c)
+        tm = {}
+        rep = ceiling.ceiling_report(sp_d, tab, draws, codes, tok, gt,
+                                     device=dev, timings=tm)
+        total, lower = duplicate_stats(draws, gt, spec.pool_n, K)
+        dup = {"queries_with_duplicates": int((total > 1).sum()),
+               "max_copies": int(total.max()),
+               "recall@1_if_lower_id_first": float((lower == 0).mean())}
+        emit(phase="6d_ceiling", info_dropout=drop,
+             queries=S["ceiling_queries"], **rep, seconds=tm,
+             duplicates=dup)
+        if drop == 0.0 and (
+                rep["oracle_tower_recall@100"] != 1.0
+                or rep["oracle_tower_recall@1"]
+                < round(float((total == 1).mean()), 4)):
+            raise AssertionError("6d: clean queries miss their documents")
+    emit(phase="6_done", seconds=time.perf_counter() - t_phase,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return n_plain + n_tab, n8
+
+
 def serve_phases(cfg, seed, dev, phase1_only=False):
     """Phases 1-4 over the corpus of :func:`make_corpus`.  Returns
     (phase-1 results, bf16 and int8, launches of each kernel on its
@@ -1117,7 +1456,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     return p1, p1_i8, paths, int8_paths, n_eval, (qtower, nci)
 
 
-def run(cfg, seed, phase1_only=False):
+def run(cfg, seed, phase1_only=False, phase6_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -1136,11 +1475,19 @@ def run(cfg, seed, phase1_only=False):
         emit(total_s=time.perf_counter() - t_start)
         print(card_line(), flush=True)
         return 0
+    if phase6_only:
+        n6 = synth_phase(cfg, seed, dev, *build_models(cfg, dev, seed))
+        emit(total_s=time.perf_counter() - t_start, synth_v3_launches=n6)
+        print(card_line(), flush=True)
+        return 0
     p1, p1_i8, paths, int8_paths, n_eval, models = serve_phases(cfg, seed,
                                                                 dev)
     gc.collect()
     torch.cuda.empty_cache()
     n_build = build_phase(cfg, seed, dev, *models)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_synth, n_synth8 = synth_phase(cfg, seed, dev, *models)
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -1156,14 +1503,17 @@ def run(cfg, seed, phase1_only=False):
         if "bound_ms_valid_rows" in r:
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
         if mode == "v3":
-            entry["launches"] += n_build
+            entry["launches"] += n_build + n_synth
             entry["launches_by_path"] = {"serve": paths["v3"],
-                                         "index_build_serve": n_build}
+                                         "index_build_serve": n_build,
+                                         "synth_corpus_serve": n_synth}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
             "max_abs_err", "plain_ms", "yardstick_ms") if k in r8}
         entry["int8"]["launches_by_path"] = int8_paths.get(mode, {})
+        if mode == "v3":
+            entry["int8"]["launches_by_path"]["6c_synth_int8"] = n_synth8
         kernels.append(entry)
     emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,
          eval_launches=n_eval)
@@ -1180,12 +1530,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase1-only", action="store_true",
                     help="build the kernels, run phase 1 and stop")
+    ap.add_argument("--phase6-only", action="store_true",
+                    help="build the kernels and the models, run phase 6 "
+                         "and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    return run(FULL, args.seed, args.phase1_only)
+    return run(FULL, args.seed, args.phase1_only, args.phase6_only)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,19 @@
-"""Command line of the port (``mevi_tpu.cli.main``'s index-build and
-search subcommands; the others come with slice E):
+"""Command line of the port (``mevi_tpu.cli.main``'s index-build,
+search and offline-metric subcommands; the others come with slices D
+and E):
 
   build-index    RQ codebooks + CSR fine index  (marco_generate_*_rq.sh)
   build-hier     hierarchical k-means ids, prefix clusters, trie tables
   search         exact MIPS top-k over embeddings, or an ADC scan over
                  RQ codes                              (faiss_search.py)
+  evaluate       Recall/MRR of a ranks tsv against a gt tsv
+  ensemble       ANCE + MEVI coarse/fine fusion grid  (ensemble_marco.py)
 
-Every command takes ``--config config.json`` (defaults when absent), the
-JAX package's flags and output files, and ``--device`` (default
-``cuda``).  Run ``python -m mevi_tpu_torch.cli.main <cmd> --help``.
+Every command takes the JAX package's flags and writes its output
+files and lines.  The device commands also take ``--config
+config.json`` (defaults when absent) and ``--device`` (default
+``cuda``); ``evaluate`` and ``ensemble`` run on the host.  Run
+``python -m mevi_tpu_torch.cli.main <cmd> --help``.
 """
 
 from __future__ import annotations
@@ -159,6 +164,62 @@ def cmd_search(args):
                        np.concatenate(out_scores), names)
 
 
+def cmd_evaluate(args):
+    """Recall/MRR of a ranks tsv against a gt tsv (host only)."""
+    from ..data import io as dio
+    from ..eval.metrics import evaluate_ranks
+    gts = dio.read_gt_dict(args.gt_file)
+    preds, _, _ = dio.parse_result_tsv(
+        args.ranks_file, {"query": 0, "pred": args.pred_col})
+    ks = tuple(int(x) for x in args.recall_num.split(","))
+    m = evaluate_ranks(gts, preds, ks)
+    for name in ("recall", "mrr"):
+        for k in ks:
+            print(f"{name.upper()}{k}", m[name][k])
+    if args.ofile:
+        with open(args.ofile, "w") as fw:
+            json.dump(m, fw, indent=1)
+
+
+def cmd_ensemble(args):
+    """Fuse an ANCE run with the coarse (and fine) MEVI runs over a grid
+    of (alpha, beta, gamma) (host only, ``ensemble_marco.py``)."""
+    import pickle
+    from ..data import io as dio
+    from ..eval.ensemble import run_ensemble
+    gts = dio.read_gt_dict(args.gt_file)
+    ance_preds, ance_scores, _ = dio.parse_result_tsv(
+        args.ance_file, {"query": 0, "pred": 2, "score": 3})
+    _, _, clusters = dio.parse_result_tsv(args.coarse_file,
+                                          {"query": 0, "cluster": 1})
+    fine_preds = fine_scores = None
+    if args.fine_file:
+        fine_preds, fine_scores, _ = dio.parse_result_tsv(
+            args.fine_file, {"query": 0, "pred": 2, "score": 3})
+    if args.mapping_file.endswith(".pkl"):
+        with open(args.mapping_file, "rb") as fr:
+            mapping = pickle.load(fr)
+    else:
+        codes = np.load(args.mapping_file)
+        mapping = {i: tuple(c.tolist()) for i, c in enumerate(codes)}
+    results = run_ensemble(
+        gts, ance_preds, ance_scores, clusters, mapping,
+        fine_preds, fine_scores,
+        alphas=tuple(float(x) for x in args.alphas.split(",")),
+        betas=tuple(float(x) for x in args.betas.split(",")),
+        gammas=tuple(float(x) for x in args.gammas.split(",")),
+        recall_ks=tuple(int(x) for x in args.recall_num.split(",")))
+    lines = []
+    for (a, b, g), m in results.items():
+        lines.append(f"alpha={a} beta={b} gamma={g}: " + " ".join(
+            f"R@{k}={v:.6f}" for k, v in m["recall"].items()) + " "
+            + " ".join(f"MRR@{k}={v:.6f}" for k, v in m["mrr"].items()))
+    print("\n".join(lines))
+    if args.ofile:
+        with open(args.ofile, "w") as fw:
+            fw.write("\n".join(lines) + "\n")
+
+
 # --------------------------------------------------------------------------
 
 def build_parser():
@@ -205,6 +266,28 @@ def build_parser():
     for sp in sub.choices.values():
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
+
+    # host-only commands: no --device
+    sp = sub.add_parser("evaluate")
+    sp.add_argument("--gt_file", required=True)
+    sp.add_argument("--ranks_file", required=True)
+    sp.add_argument("--pred_col", type=int, default=-1)
+    sp.add_argument("--recall_num", default="1,5,10,20,50,100,1000")
+    sp.add_argument("--ofile", default=None)
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("ensemble")
+    sp.add_argument("--gt_file", required=True)
+    sp.add_argument("--ance_file", required=True)
+    sp.add_argument("--coarse_file", required=True)
+    sp.add_argument("--fine_file", default=None)
+    sp.add_argument("--mapping_file", required=True)
+    sp.add_argument("--alphas", default="0.6")
+    sp.add_argument("--betas", default="0.03")
+    sp.add_argument("--gammas", default="0.02")
+    sp.add_argument("--recall_num", default="10,50,1000")
+    sp.add_argument("--ofile", default=None)
+    sp.set_defaults(fn=cmd_ensemble)
     return p
 
 

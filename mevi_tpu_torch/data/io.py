@@ -1,12 +1,15 @@
 """File contracts shared with the reference data pipeline (the port's
-copy of the query/gt, embedding-memmap and result-tsv parts of
-``mevi_tpu.data.io``; the token memmaps and packed queries come with
-slice E).
+copy of ``mevi_tpu.data.io``):
 
 * ``dev_mevi_dedup.tsv`` / ``qg{n}.tsv`` — ``query \\t docid[,docid...]``
   (``MEVI/main_utils.py:235-291``).
+* ``all_document_{tokens,masks}.bin`` — int64 memmaps of shape
+  ``(ndoc, doc_length)``
+  (``dataprocess/msmarco_passage/prepare_passage_tokenized.py:83-88``).
 * ``docemb.bin`` — float32 memmap ``(ndoc, emb)``
   (``MEVI/generate.py:140-187``).
+* packed NQ query rows ``(ids[L], mask[L], docid)`` int32
+  (``dataprocess/NQ_dpr/tokenize_query.py:10-23``).
 * result tsvs: coarse ``(query, clusters, gts, scores)``, fine
   ``(query, ndoc, docids, gts)``, hard-neg ``(query, gt_scores, docids,
   scores)`` (``MEVI/main_models.py:4227-4235``, parsed by
@@ -53,8 +56,28 @@ def read_gt_dict(path: str) -> Dict[str, List[int]]:
 
 
 # --------------------------------------------------------------------------
-# embedding memmaps
+# memmaps
 # --------------------------------------------------------------------------
+
+def open_token_memmaps(prefix: str, doc_length: int = 128,
+                       dtype=np.int64) -> Tuple[np.memmap, np.memmap]:
+    """Open ``{prefix}_tokens.bin`` / ``{prefix}_masks.bin`` pairs."""
+    tokens = np.memmap(prefix + "_tokens.bin", dtype=dtype, mode="r")
+    masks = np.memmap(prefix + "_masks.bin", dtype=dtype, mode="r")
+    tokens = tokens.reshape(-1, doc_length)
+    masks = masks.reshape(-1, doc_length)
+    assert tokens.shape == masks.shape
+    return tokens, masks
+
+
+def write_token_memmaps(prefix: str, tokens: np.ndarray,
+                        masks: np.ndarray, dtype=np.int64) -> None:
+    for name, arr in (("tokens", tokens), ("masks", masks)):
+        mm = np.memmap(f"{prefix}_{name}.bin", dtype=dtype, mode="w+",
+                       shape=arr.shape)
+        mm[:] = arr
+        mm.flush()
+
 
 def open_embedding_memmap(path: str, emb_size: int = 768,
                           dtype=np.float32) -> np.memmap:
@@ -67,6 +90,22 @@ def write_embedding_memmap(path: str, emb: np.ndarray,
     mm = np.memmap(path, dtype=dtype, mode="w+", shape=emb.shape)
     mm[:] = emb.astype(dtype)
     mm.flush()
+
+
+def open_packed_queries(path: str, query_length: int = 32) -> np.ndarray:
+    """Packed NQ query rows: ``(ids[L], mask[L], docid)`` int32
+    (``tokenize_query.py:10-23``).  Returns (n, 2*L+1)."""
+    arr = np.memmap(path, dtype=np.int32, mode="r")
+    width = 2 * query_length + 1
+    return arr.reshape(-1, width)
+
+
+def pack_queries(ids: np.ndarray, mask: np.ndarray,
+                 docids: np.ndarray) -> np.ndarray:
+    assert ids.shape == mask.shape and ids.shape[0] == docids.shape[0]
+    return np.concatenate(
+        [ids.astype(np.int32), mask.astype(np.int32),
+         docids.reshape(-1, 1).astype(np.int32)], axis=1)
 
 
 # --------------------------------------------------------------------------

@@ -87,10 +87,18 @@ def _tree_rows(entry, rows):
     return tuple((k[rows], v[rows]) for k, v in entry)
 
 
+def _prefix_index(code_hist, p: int, K: int):
+    """Base-K index of each row's code prefix (c0..c_{p-1})."""
+    pidx = code_hist[:, 0]
+    for j in range(1, p):
+        pidx = pidx * K + code_hist[:, j]
+    return pidx
+
+
 @torch.inference_mode()
 def nci_beam_search_incremental(model: NCIT5, input_ids, attention_mask,
                                 num_beams: int, length_penalty: float = 0.8,
-                                level_tables=None,
+                                level_tables=None, pawa_tables=None,
                                 ) -> Tuple[torch.Tensor, ...]:
     """KV-cached beam decode: each step runs one token through the
     decoder and PAWA; caches are per-position entry lists, beam-reordered
@@ -99,13 +107,18 @@ def nci_beam_search_incremental(model: NCIT5, input_ids, attention_mask,
     never reordered; cross K/V stay per query.
 
     ``level_tables``: ``head_level_tables()`` built once per params by a
-    serving loop.  Returns (codes (b, nb, M) int32, normalized scores
-    (b, nb), enc_hidden), identical to :func:`nci_beam_search`."""
+    serving loop.  ``pawa_tables``: ``pawa_prefix_tables()`` output;
+    PAWA is query-independent, so at the levels it covers its net and
+    its delta matmul become per-prefix row gathers, and the net runs
+    only at t = M-1 and the EOS step, its cache rebuilt from the
+    per-prefix KV tables.  Returns (codes (b, nb, M) int32, normalized
+    scores (b, nb), enc_hidden), identical to :func:`nci_beam_search`."""
     dims = model.dims
     K, M = dims.kary, dims.code_len
     B = input_ids.shape[0]
     nb = num_beams
     dev = input_ids.device
+    use_tables = pawa_tables is not None and dims.use_pawa
     enc_hidden = model.encode(input_ids, attention_mask)
     memory, mem_mask, _ = model.build_memory(enc_hidden, attention_mask)
     cross_kvs = model.project_cross_kvs(memory)
@@ -113,14 +126,16 @@ def nci_beam_search_incremental(model: NCIT5, input_ids, attention_mask,
         level_tables = model.head_level_tables()
     pawa_mem = model.pawa.precompute_mem_kvs() if dims.use_pawa else None
 
-    def step(tok, t, dec_entries, pawa_entries, beams):
+    def step(tok, t, dec_entries, pawa_entries, beams, slab=None):
         logits, dec_e, pawa_e = model.decode_logits_step_unrolled(
             tok, t, dec_entries, pawa_entries, cross_kvs, mem_mask,
-            beams=beams, level_tables=level_tables, pawa_mem=pawa_mem)
+            beams=beams, level_tables=level_tables, pawa_mem=pawa_mem,
+            delta_slab=slab)
         return torch.log_softmax(logits.float(), -1), dec_e, pawa_e
 
     logp0, dec_e0, pawa_e0 = step(
-        torch.zeros((B, 1), dtype=torch.long, device=dev), 0, [], [], 1)
+        torch.zeros((B, 1), dtype=torch.long, device=dev), 0, [], [], 1,
+        pawa_tables["delta0"] if use_tables else None)
     # exact original flat top-k: beam 0 alive at 0.0, the others at -1e9
     # (with nb > K the tail beams are the same dead hypotheses the panel
     # path produces)
@@ -132,12 +147,38 @@ def nci_beam_search_incremental(model: NCIT5, input_ids, attention_mask,
     code_hist[:, 0] = (pos0 % K).reshape(-1)
     cur_tok = code_hist[:, :1] + 2
     dec_entries = [dec_e0]
-    pawa_entries = (None if pawa_e0 is None
-                    else [_tree_rows(pawa_e0, slice(0, 1))])
+    if use_tables:
+        pawa_entries = None          # rebuilt by gather at live steps
+        skip_levels = set(pawa_tables["T"])
+    else:
+        pawa_entries = (None if pawa_e0 is None
+                        else [_tree_rows(pawa_e0, slice(0, 1))])
+        skip_levels = set()
 
+    def rebuild_pawa(t, extra=None):
+        """PAWA entries for positions 0..t-1 from the per-prefix KV
+        tables at the current code history, the last one ``extra`` (the
+        live entry of the net's run at t = M-1) when given."""
+        ents = [pawa_tables["e0"]]
+        top = t - 1 if extra is not None else t
+        for p in range(1, top):
+            ents.append(_tree_rows(pawa_tables["KV"][p],
+                                   _prefix_index(code_hist, p, K)))
+        if extra is not None:
+            ents.append(extra)
+        return ents
+
+    pawa_live = None                 # reordered net entry at t = M-1
     for t in range(1, M):
-        logp, dec_e, pawa_e = step(cur_tok, t, dec_entries, pawa_entries,
-                                   nb)
+        if t in skip_levels and t < M - 1:
+            slab = pawa_tables["T"][t][_prefix_index(code_hist, t, K)]
+            logp, dec_e, pawa_e = step(cur_tok, t, dec_entries, None, nb,
+                                       slab)
+        else:
+            if use_tables:
+                pawa_entries = rebuild_pawa(t)
+            logp, dec_e, pawa_e = step(cur_tok, t, dec_entries,
+                                       pawa_entries, nb)
         flat = (beam_scores[:, :, None]
                 + logp[:, :K].reshape(B, nb, K)).reshape(B, nb * K)
         beam_scores, pos = _topk_stable(flat, nb)
@@ -148,12 +189,19 @@ def nci_beam_search_incremental(model: NCIT5, input_ids, attention_mask,
         dec_entries = ([dec_entries[0]]
                        + [_tree_rows(e, rows) for e in dec_entries[1:]]
                        + [_tree_rows(dec_e, rows)])
-        if pawa_entries is not None:
+        if use_tables:
+            if pawa_e is not None:
+                pawa_live = _tree_rows(pawa_e, rows)
+        elif pawa_entries is not None:
             pawa_entries = ([pawa_entries[0]]
                             + [_tree_rows(e, rows) for e in pawa_entries[1:]]
                             + [_tree_rows(pawa_e, rows)])
         cur_tok = code[:, None] + t * K + 2
 
+    if use_tables:
+        # positions 1..M-2 regathered at the final prefixes; M-1 is the
+        # reordered live entry of the net run above
+        pawa_entries = rebuild_pawa(M, pawa_live)
     logp, _, _ = step(cur_tok, M, dec_entries, pawa_entries, nb)
     norm, order = _final_order(beam_scores, logp[:, K].reshape(B, nb), M,
                                length_penalty)

@@ -157,6 +157,68 @@ class NCIT5(nn.Module):
                 for t in range(L)])
         return W_lvl, A_lvl
 
+    def pawa_prefix_tables(self, level_tables=None,
+                           max_entries: int = 1 << 17):
+        """Per-prefix PAWA tables for the serving beam.
+
+        PAWA's input is only the decode-token embeddings, so its hidden
+        state at position t is a function of the code prefix
+        (c0..c_{t-1}).  For every level 1 <= t <= M-2 (the net still runs
+        at t = M-1 to write the entry the EOS step attends):
+
+          T[t]  (K^t, dm*(K+1)): the logits-delta slab ``H_t @ A_t``, so
+                the step's adaptor matmul becomes a row gather;
+          KV[p] the cache entry the net would write at position p, a
+                tuple over layers of ``(k, v)`` of shape (K^p, h, dk)
+                (rows-major: a row gather of every leaf is the entry).
+
+        Plus ``delta0`` (dm*(K+1),) and ``e0`` (the 1-row entry) for the
+        universal start position.  One K^(M-2)-row panel run and one
+        matmul a level, once per params.  Raises ``ValueError`` when
+        ``kary^(M-2) > max_entries``: partial coverage is not supported
+        (the beam would lack entries at its live steps), and the caller
+        serves through the plain beam instead.
+        """
+        d = self.dims
+        if not d.use_pawa:
+            raise ValueError("pawa_prefix_tables: the model has no PAWA")
+        K, M = d.kary, d.code_len
+        A_lvl = (self.head_level_tables() if level_tables is None
+                 else level_tables)[1]
+        t_top = 0
+        while t_top < M - 2 and K ** (t_top + 1) <= max_entries:
+            t_top += 1
+        if t_top < M - 2:
+            raise ValueError(
+                f"pawa_prefix_tables: kary^{M - 2} = {K ** (M - 2)} "
+                f"exceeds max_entries={max_entries}; partial prefix "
+                "tables are unsupported — use the plain beam path "
+                "(pawa_tables=None)")
+        # every K^t_top prefix as tokens [start, tok(c0), ...]; a lower
+        # level's rows are the slice whose later codes are all 0
+        n = K ** t_top
+        dev = self.decode_embeddings.weight.device
+        idx = torch.arange(n, device=dev)
+        codes = torch.stack([(idx // K ** (t_top - 1 - lvl)) % K
+                             for lvl in range(t_top)], 1) if t_top else \
+            torch.zeros((n, 0), dtype=torch.long, device=dev)
+        seqs = torch.cat([torch.zeros((n, 1), dtype=torch.long, device=dev),
+                          codes_to_tokens(codes, K)], 1)
+        h_all, kvs = self.pawa.panel_with_kvs(self.decode_embeddings(seqs))
+        nl = kvs.shape[0]
+        out = {"T": {}, "KV": {}}
+        for t in range(1, t_top + 1):
+            rows = (torch.arange(K ** t, device=dev) * K ** (t_top - t)
+                    if t < t_top else slice(None))
+            out["T"][t] = h_all[rows, t] @ A_lvl[t]
+            out["KV"][t] = tuple(
+                (kvs[i, 0, rows, t].contiguous(),
+                 kvs[i, 1, rows, t].contiguous()) for i in range(nl))
+        out["delta0"] = (h_all[:1, 0] @ A_lvl[0])[0]
+        out["e0"] = tuple((kvs[i, 0, :1, 0].contiguous(),
+                           kvs[i, 1, :1, 0].contiguous()) for i in range(nl))
+        return out
+
     def project_cross_kvs(self, memory):
         """Per-layer decoder cross-attention (k, v), once per query."""
         return self.decoder.project_cross_kvs(memory)
@@ -233,26 +295,39 @@ class NCIT5(nn.Module):
                                     pawa_entries, cross_kvs,
                                     memory_mask=None, beams: int = 1,
                                     level_tables=None,
-                                    pawa_mem: Optional[list] = None):
+                                    pawa_mem: Optional[list] = None,
+                                    delta_slab=None):
         """Single-token decode at python-int ``t`` over per-position
         entry lists (see ``T5Stack.decode_step_unrolled``).
         ``level_tables``: the full ``head_level_tables()`` output.
+        ``delta_slab``: precomputed PAWA logits-delta rows from
+        :meth:`pawa_prefix_tables`, (b, dm*(K+1)) gathered by prefix or
+        (dm*(K+1),) for the universal position 0; when given, the PAWA
+        net and its (rows, dm) x (dm, dm*(K+1)) matmul are skipped.
         Returns (compact logits (b, kary+1), new dec entry, new pawa
         entry or None)."""
         d = self.dims
         K, L = d.kary, d.max_output_length
+        dm = d.t5.d_model
         embed_t = self.decode_embeddings(tok_t.long())
         hidden_t, dec_e = self.decoder.decode_step_unrolled(
             embed_t, t, dec_entries, cross_kvs, extend_mask(memory_mask),
             beams=beams)
-        seq_t = hidden_t[:, 0, :] * (d.t5.d_model ** -0.5)
+        seq_t = hidden_t[:, 0, :] * (dm ** -0.5)
         h_t, pawa_e = None, None
-        if d.use_pawa:
+        if d.use_pawa and delta_slab is None:
             h_t, pawa_e = self.pawa.decode_step_unrolled(
                 embed_t, t, pawa_entries, pawa_mem)
             h_t = h_t[:, 0, :]
         W_t, A_t = self._tables_at(t, level_tables)
         logits = self._level_logits(seq_t, h_t, W_t, A_t)
+        if delta_slab is not None:
+            if delta_slab.dim() == 1:          # universal start position
+                logits = logits + seq_t @ delta_slab.reshape(
+                    dm, K + 1).to(seq_t.dtype)
+            else:
+                tmp = delta_slab.reshape(-1, dm, K + 1).to(seq_t.dtype)
+                logits = logits + torch.einsum("bdk,bd->bk", tmp, seq_t)
         if t == L - 1:
             logits = logits + _last_position_mask(K, logits.device)[None]
         return logits, dec_e, pawa_e

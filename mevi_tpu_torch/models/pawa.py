@@ -167,7 +167,8 @@ class PawaAdaptor(nn.Module):
             for _ in range(dims.num_layers))
         self.requires_grad_(False)
 
-    def forward(self, tgt_embeds):
+    def _panel_inputs(self, tgt_embeds):
+        """(causal additive mask (1, 1, l, l), memory (b, 1, d))."""
         b, l, _ = tgt_embeds.shape
         tri = torch.ones(l, l, dtype=torch.bool,
                          device=tgt_embeds.device).tril()
@@ -176,10 +177,29 @@ class PawaAdaptor(nn.Module):
         mask = torch.where(tri, zero, zero - math.inf)[None, None]
         memory = self.memory_embedding.to(tgt_embeds.dtype).expand(
             b, 1, self.dims.d_model)
+        return mask, memory
+
+    def forward(self, tgt_embeds):
+        mask, memory = self._panel_inputs(tgt_embeds)
         x = tgt_embeds
         for layer in self.layers:
             x = layer(x, memory, mask)
         return x
+
+    def panel_with_kvs(self, tgt_embeds):
+        """Panel forward that also returns every layer's self-attention
+        (k, v), what the decode path caches: (h_all (b, l, d), kvs
+        (num_layers, 2, b, l, h, dk)).  PAWA sees only the decode
+        tokens, so its whole state is a function of the code prefix;
+        :meth:`NCIT5.pawa_prefix_tables` tabulates it per prefix."""
+        mask, memory = self._panel_inputs(tgt_embeds)
+        x = tgt_embeds
+        kvs = []
+        for layer in self.layers:
+            _, k, v = layer.self_attn.project_qkv(x)     # (b, l, h, dk)
+            kvs.append(torch.stack([k, v]))
+            x = layer(x, memory, mask)
+        return x, torch.stack(kvs)
 
     def precompute_mem_kvs(self, dtype=None):
         """Per layer the (1, 1, d) constant ``out_proj(v_mem)``: the

@@ -14,6 +14,7 @@ equal ``PallasServer``'s.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import numpy as np
@@ -61,13 +62,20 @@ class BucketServer:
     "beam_major" (see ``merge_pool``).  ``bucket_kernel``: "v3" (bounds
     gathered on the device before the kernel, the default) or "fused"
     (looked up inside the kernel).  The window is the TPU contract's
-    (``align=8``)."""
+    (``align=8``).
+
+    ``pawa_tables`` (off by default, as ``MEVI_PAWA_TABLES`` in the JAX
+    server): build ``NCIT5.pawa_prefix_tables`` once, next to the head
+    tables, so the beam replaces PAWA's net and delta matmul at levels
+    1..M-2 by per-prefix row gathers.  When ``kary^(M-2)`` exceeds the
+    tables' entry limit the server says so on stderr, serves through the
+    plain beam and leaves ``self.pawa_tables`` None."""
 
     def __init__(self, qtower: T5Model, nci: NCIT5, index: FineIndex,
                  num_beams: int = 10, cap: int = 512, pool: int = 1000,
                  length_penalty: float = 0.8, inv_scale: float = 1.0,
                  rank_mode: str = "score", bucket_kernel: str = "v3",
-                 device="cuda"):
+                 pawa_tables: bool = False, device="cuda"):
         if rank_mode not in ("score", "beam_major"):
             raise ValueError(rank_mode)
         if bucket_kernel not in ("v3", "fused"):
@@ -95,6 +103,15 @@ class BucketServer:
         # is (L, dm, dm*(K+1)), ~233 MB in bf16 at full width)
         with torch.inference_mode():
             self.level_tables = nci.head_level_tables()
+        self.pawa_tables = None
+        if pawa_tables and nci.dims.use_pawa:
+            try:
+                with torch.inference_mode():
+                    self.pawa_tables = nci.pawa_prefix_tables(
+                        self.level_tables)
+            except ValueError as e:
+                print(f"BucketServer: PAWA prefix tables disabled: {e}",
+                      file=sys.stderr)
 
     @torch.inference_mode()
     def coarse(self, query_ids, query_mask):
@@ -103,7 +120,8 @@ class BucketServer:
         qemb = self.qtower.first_token_rep(query_ids, query_mask)
         codes, beam_scores, _ = nci_beam_search_incremental(
             self.nci, query_ids, query_mask, self.num_beams,
-            self.length_penalty, level_tables=self.level_tables)
+            self.length_penalty, level_tables=self.level_tables,
+            pawa_tables=self.pawa_tables)
         cidx = pack_codes(codes.reshape(-1, self.M), self.kary)
         q_rep = (qemb.to(self.q_dt) * self.inv_scale).repeat_interleave(
             self.num_beams, 0).contiguous()

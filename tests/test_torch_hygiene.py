@@ -57,7 +57,7 @@ def no_cuda():
         pytest.skip("a card is present: entry points run on it")
 
 
-def _entry_points():
+def _entry_points(tmp=None):
     from mevi_tpu_torch.config import InferConfig
     from mevi_tpu_torch.eval.run_eval import Evaluator
     from mevi_tpu_torch.eval.searcher import (FineIndex, FineReranker,
@@ -66,6 +66,9 @@ def _entry_points():
     from mevi_tpu_torch.eval.streaming import (HostStreamFineReranker,
                                                streaming_mips_topk)
     from mevi_tpu_torch.config import MEVIConfig, RQConfig
+    from mevi_tpu_torch.data import synth
+    from mevi_tpu_torch.data.datasets import device_prefetch
+    from mevi_tpu_torch.eval import ceiling
     from mevi_tpu_torch.index.build import build_rq_index, embed_corpus
     from mevi_tpu_torch.index.csr import make_index
     from mevi_tpu_torch.index.hierarchical import hierarchical_kmeans_ids
@@ -107,6 +110,13 @@ def _entry_points():
 
     def rep(ids, mask):
         return torch.zeros(ids.shape[0], 8, device=ids.device)
+    spec = synth.SynthSpec(ndoc=8, d=8, kary=2, levels=2, pool_n=4,
+                           qlen=8, n_filler_vocab=4)
+    tables = synth.make_tables(spec)
+    draws = synth.make_draws(spec)
+    codes8 = np.zeros((8, 2), np.int32)
+    qtok = synth.query_tokens(spec, draws[:1], np.random.default_rng(0))
+    obs = ceiling.observed_info(spec, qtok)
     return {
         "T5Model": lambda **kw: T5Model(t5, **kw),
         "NCIT5": lambda **kw: NCIT5(nd, **kw),
@@ -143,6 +153,21 @@ def _entry_points():
         "hierarchical_kmeans_ids": lambda **kw: hierarchical_kmeans_ids(
             np.eye(8, dtype=np.float32), k=2, c=4, iters=1, **kw),
         "embed_corpus": lambda **kw: embed_corpus(rep, tok, tok, 2, **kw),
+        "synth.fit_rq_codes": lambda **kw: synth.fit_rq_codes(
+            spec, tables, draws, cache_base=tmp, fit_sample=8, iters=1,
+            **kw),
+        "synth.fill_sorted_matrix": lambda **kw: synth.fill_sorted_matrix(
+            spec, tables, draws, np.arange(8), 0, torch.float32, **kw),
+        "synth.rows_abs_max": lambda **kw: synth.rows_abs_max(tables, draws,
+                                                              **kw),
+        "ceiling.candidate_stats": lambda **kw: ceiling.candidate_stats(
+            spec, draws, codes8, obs, np.zeros(1, np.int64), **kw),
+        "ceiling.exact_mips_topk": lambda **kw: ceiling.exact_mips_topk(
+            np.ones((1, 8), np.float32), spec, tables, draws, 2, **kw),
+        "ceiling.ceiling_report": lambda **kw: ceiling.ceiling_report(
+            spec, tables, draws, codes8, qtok, np.zeros(1, np.int64), **kw),
+        "device_prefetch": lambda **kw: list(device_prefetch(
+            iter([{"x": np.zeros(2)}]), **kw)),
     }
 
 
@@ -153,7 +178,11 @@ ENTRY_NAMES = ["T5Model", "NCIT5", "PawaAdaptor", "build_fine_index",
                "HostStreamFineReranker", "make_index", "Evaluator",
                "profile_bucket.profile", "kmeans_fit", "rq_train",
                "build_rq_index", "adc_search", "fill_onehot_matrix",
-               "hierarchical_kmeans_ids", "embed_corpus"]
+               "hierarchical_kmeans_ids", "embed_corpus",
+               "synth.fit_rq_codes", "synth.fill_sorted_matrix",
+               "synth.rows_abs_max", "ceiling.candidate_stats",
+               "ceiling.exact_mips_topk", "ceiling.ceiling_report",
+               "device_prefetch"]
 
 
 @pytest.mark.parametrize("name", ENTRY_NAMES)
@@ -163,5 +192,5 @@ def test_entry_point_needs_cuda_by_default(no_cuda, name):
 
 
 @pytest.mark.parametrize("name", ENTRY_NAMES)
-def test_entry_point_runs_with_cpu(name):
-    _entry_points()[name](device="cpu")
+def test_entry_point_runs_with_cpu(name, tmp_path):
+    _entry_points(str(tmp_path))[name](device="cpu")
