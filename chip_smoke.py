@@ -5,12 +5,14 @@ holds each against its plain PyTorch version, serves batches end to end
 and runs the offline evaluation at full width over an MS MARCO-scale
 corpus.
 
-    python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only]
+    python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only |
+                                     --phase7-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
 result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
 builds the kernels and the models and runs phase 6 alone, with no
-result line.
+result line; ``--phase7-only`` runs phase 6a's corpus build, then
+phase 7, with no result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -68,7 +70,27 @@ Phases:
      the int8 fill after the bf16 one is freed, its sample rows and one
      batch; (d) ``ceiling_report`` for 512 clean queries and 512 with
      info dropout 0.3, with the seconds of each part; clean queries must
-     find their documents (recall@100 1.0, recall@1 up to duplicates).
+     find their documents (recall@100 1.0, recall@1 up to duplicates);
+  7. training over phase 6's corpus: (a) ``mevi_tpu_torch.cli.main
+     train --device cuda --max_epochs 1`` in-process over
+     ``configs/marco_rq4x5.json`` with bf16 compute and dropout 0.1,
+     153,600 query-language queries for random documents with their
+     codes (300 steps at batch 512), the 1,024-query dev hit@10 probe:
+     ms a step (median, spread), queries/s, model FLOPs a step and their
+     share of the bf16 dense peak, peak memory, the first and last 20
+     losses, the leaderboard; (b) the best tag restored through
+     ``CheckpointManager``, bit for bit against the live parameters and
+     optimizer state; (c) the first batch's loss in bf16 compute
+     against float32 on the initial weights (within 2%); (d) bf16
+     copies of the trained and of the initial NCI served through
+     ``BucketServer`` (v3, batch 512, 10 beams, cap 512, pool 1000) over
+     the bf16 fill, 2 warm-up and 5 timed batches of held-out queries:
+     q/s, stage ms, pool filled, coarse hit@1/@10 and per-level top-beam
+     prefix accuracy, one pool against the plain bucket version; (e) one
+     twin-tower step (T5 12 + 12) and one joint step (NCI + tower +
+     codebooks, ``pq_loss`` ce, the NCI frozen) then its EMA variant at
+     batch 64, 7 negatives, 128 doc tokens, remat on: ms, peak, losses,
+     every group's update non-zero (frozen exactly zero).
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
@@ -80,8 +102,11 @@ any phase fails.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import gc
 import json
+import os.path as osp
 import re
 import shutil
 import statistics
@@ -114,6 +139,12 @@ BUILD = dict(config="configs/marco_rq4x5.json", seed=42, iters=25,
 SYNTH = dict(seed=0, fit_sample=500_000, fit_iters=8, check_rows=65_536,
              ceiling_queries=512, ceiling_dropout=0.3, f32_tol=2e-5,
              bf16_tie=2e-2)
+# 153,600 queries = 300 steps at the config's batch 512; the twin and
+# joint steps are cut to batch 64 (512 documents of 128 tokens through
+# a 12 + 12 T5 tower) from the config's 512
+TRAIN7 = dict(config="configs/marco_rq4x5.json", train_queries=153_600,
+              steps=300, dev_queries=1024, dropout=0.1, bf16_gap=0.02,
+              twin_batch=64, co_neg=7, doc_len=128)
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
 
@@ -1067,51 +1098,44 @@ def duplicate_stats(draws, gt, pool_n, kary):
     return total, lower
 
 
-def synth_phase(cfg, seed, dev, qtower, nci):
-    """Phase 6 over ``bench.py``'s corpus (``data/synth.py``) at its TPU
-    geometry: (a) build it on the card and check a sample of its rows
-    and codes; (b) serve 512-query batches of its query language through
-    ``BucketServer`` without and with the PAWA prefix tables, compare
-    their beams (and a float32 copy's), hold one pool against the plain
-    bucket version; (c) the int8 copy, one batch; (d) the ceilings.
-    Returns the v3 launches: (served batches, int8 batch)."""
-    import copy
-    import dataclasses
+def timed(secs, name, fn):
+    """``fn()`` between two synchronizations; its seconds go to
+    ``secs[name]``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - t0
+    return out
+
+
+def synth_corpus(cfg, seed, dev):
+    """Phase 6a: ``bench.py``'s corpus (``data/synth.py``) at its TPU
+    geometry, built on the card, a sample of its rows and codes checked.
+    Returns the corpus as a dict (spec, host tables, device tables,
+    draws, codebooks, codes, CSR, the bf16 cluster-sorted fill, the
+    sample) and the seconds of each step."""
     from mevi_tpu_torch.data import synth
-    from mevi_tpu_torch.decode.beam import nci_beam_search_incremental
-    from mevi_tpu_torch.eval import ceiling
-    from mevi_tpu_torch.eval.searcher import FineIndex
-    from mevi_tpu_torch.index.csr import build_csr, pack_codes
-    from mevi_tpu_torch.ops import bucket as B
-    from mevi_tpu_torch.serve import BucketServer
+    from mevi_tpu_torch.index.csr import build_csr
     S = SYNTH
-    t_phase = time.perf_counter()
-    K, M, cap, nb = cfg["kary"], cfg["levels"], cfg["cap"], cfg["beams"]
-    Bq, lp = cfg["batch"], cfg["length_penalty"]
+    K, M, cap = cfg["kary"], cfg["levels"], cfg["cap"]
     spec = synth.SynthSpec(ndoc=cfg["ndocs"], d=cfg["d"], kary=K, levels=M,
                            seed=S["seed"], qlen=cfg["qlen"])
     secs = {}
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[name] = time.perf_counter() - t0
-        return out
-
-    # ---- (a) the corpus ----------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9
-    tab = timed("make_tables_s", lambda: synth.make_tables(spec))
-    draws = timed("make_draws_s", lambda: synth.make_draws(spec))
+    tab = timed(secs, "make_tables_s", lambda: synth.make_tables(spec))
+    draws = timed(secs, "make_draws_s", lambda: synth.make_draws(spec))
     tables = synth.tables_to(tab, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        cbs, codes = timed("fit_rq_codes_s", lambda: synth.fit_rq_codes(
-            spec, tables, draws, cache_base=tmp, fit_sample=S["fit_sample"],
-            iters=S["fit_iters"], device=dev))
-    offsets, doc_ids = timed("csr_s", lambda: build_csr(codes, K))
-    semb = timed("fill_bf16_s", lambda: synth.fill_sorted_matrix(
+        cbs, codes = timed(secs, "fit_rq_codes_s",
+                           lambda: synth.fit_rq_codes(
+                               spec, tables, draws, cache_base=tmp,
+                               fit_sample=S["fit_sample"],
+                               iters=S["fit_iters"], device=dev))
+    offsets, doc_ids = timed(secs, "csr_s", lambda: build_csr(codes, K))
+    semb = timed(secs, "fill_bf16_s", lambda: synth.fill_sorted_matrix(
         spec, tables, draws, doc_ids, n_pad_rows=cap + 8,
         dtype=torch.bfloat16, device=dev))
     emit(phase="6a_corpus", rows=spec.ndoc, d=spec.d,
@@ -1138,6 +1162,38 @@ def synth_phase(cfg, seed, dev, qtower, nci):
                                  torch.from_numpy(cbs).to(dev), None,
                                  torch.from_numpy(codes[sample_docs]).to(
                                      dev)))
+    return dict(spec=spec, tab=tab, tables=tables, draws=draws, cbs=cbs,
+                codes=codes, offsets=offsets, doc_ids=doc_ids, semb=semb,
+                pick=pick, ref=ref, rng=rng), secs
+
+
+def synth_phase(cfg, seed, dev, qtower, nci, corpus, secs):
+    """Phase 6 over the corpus of :func:`synth_corpus`: (b) serve
+    512-query batches of its query language through ``BucketServer``
+    without and with the PAWA prefix tables, compare their beams (and a
+    float32 copy's), hold one pool against the plain bucket version;
+    (c) the int8 copy, one batch; (d) the ceilings.  The bf16 fill is
+    freed (``corpus["semb"]`` set to None).  Returns the v3 launches:
+    (served batches, int8 batch)."""
+    from mevi_tpu_torch.data import synth
+    from mevi_tpu_torch.decode.beam import nci_beam_search_incremental
+    from mevi_tpu_torch.eval import ceiling
+    from mevi_tpu_torch.eval.searcher import FineIndex
+    from mevi_tpu_torch.index.csr import pack_codes
+    from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.serve import BucketServer
+    S = SYNTH
+    t_phase = time.perf_counter()
+    K, M, cap, nb = cfg["kary"], cfg["levels"], cfg["cap"], cfg["beams"]
+    Bq, lp = cfg["batch"], cfg["length_penalty"]
+    spec, tab, tables, draws = (corpus[k] for k in ("spec", "tab", "tables",
+                                                     "draws"))
+    codes, offsets, doc_ids = (corpus[k] for k in ("codes", "offsets",
+                                                    "doc_ids"))
+    semb, ref = corpus["semb"], corpus["ref"]
+    corpus["semb"] = None
+    pick_d = torch.from_numpy(corpus["pick"]).to(dev)
+    rng = corpus["rng"]
 
     # ---- (b) serve, without and with the PAWA prefix tables -----------
     index = FineIndex(torch.from_numpy(offsets).to(dev),
@@ -1147,7 +1203,7 @@ def synth_phase(cfg, seed, dev, qtower, nci):
               device=dev)
     plain = BucketServer(qtower, nci, index, **kw)
     with torch.inference_mode():
-        tabs = timed("pawa_tables_build_s",
+        tabs = timed(secs, "pawa_tables_build_s",
                      lambda: nci.pawa_prefix_tables(plain.level_tables))
     leaves = (list(tabs["T"].values()) + [tabs["delta0"]]
               + [x for e in [*tabs["KV"].values(), tabs["e0"]]
@@ -1261,10 +1317,10 @@ def synth_phase(cfg, seed, dev, qtower, nci):
     torch.cuda.empty_cache()
 
     # ---- (c) int8: the scale from the true maximum over every row ------
-    s_max = timed("abs_max_pass_s",
+    s_max = timed(secs, "abs_max_pass_s",
                   lambda: synth.rows_abs_max(tables, draws, device=dev))
     q_scale = 126.0 / s_max
-    semb8 = timed("fill_int8_s", lambda: synth.fill_sorted_matrix(
+    semb8 = timed(secs, "fill_int8_s", lambda: synth.fill_sorted_matrix(
         spec, tables, draws, doc_ids, n_pad_rows=cap + 8, dtype=torch.int8,
         q_scale=q_scale, device=dev))
     d8 = (semb8[pick_d].int() - synth.quantize_rows(ref, q_scale).int()).abs()
@@ -1319,6 +1375,388 @@ def synth_phase(cfg, seed, dev, qtower, nci):
     emit(phase="6_done", seconds=time.perf_counter() - t_phase,
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
     return n_plain + n_tab, n8
+
+# ---------------------------------------------------------------------------
+# phase 7: training through the real entry points, then the trained NCI
+# served
+# ---------------------------------------------------------------------------
+
+def nci_step_flops(dims, b, lq):
+    """Model FLOPs of one NCI training step (forward + backward = 3x the
+    forward's matmul FLOPs), counted from the shapes: T5 encoder and
+    decoder (cross-attention K/V over the encoder states), PAWA over
+    the decode positions (its memory is one vector), the compact head
+    and the per-level PAWA weight delta."""
+    t5 = dims.t5
+    dm, h, dk, dff = t5.d_model, t5.num_heads, t5.d_kv, t5.d_ff
+    inner = h * dk
+    L, K = dims.max_output_length, dims.kary
+    T, Td = b * lq, b * L
+    enc = t5.num_layers * (2 * T * dm * inner * 4 + 4 * b * h * lq * lq * dk
+                           + 4 * T * dm * dff)
+    dec = t5.num_decoder_layers * (
+        2 * Td * dm * inner * 4 + 4 * b * h * L * L * dk          # self
+        + 2 * Td * dm * inner * 2 + 2 * T * dm * inner * 2        # cross
+        + 4 * b * h * L * lq * dk + 4 * Td * dm * dff)
+    pw = dims.pawa_dims()
+    pd, ph = pw.d_model, pw.num_heads
+    pawa = pw.num_layers * (2 * Td * pd * pd * 4 + 4 * b * ph * L * L
+                            * (pd // ph) + 2 * Td * pd * pd * 2
+                            + 2 * b * pd * pd * 2 + 4 * Td * pd * pw.d_ff)
+    head = 2 * Td * dm * (K + 1) * 2 + 2 * Td * dm * dm * (K + 1)
+    return 3 * (enc + dec + pawa + head)
+
+
+def snapshot(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def group_updates(model, before, labels):
+    """Largest |update| of each optimizer label over one step."""
+    from mevi_tpu_torch.weights import flax_names
+    names = flax_names(model)
+    out = {}
+    for n, p in model.named_parameters():
+        lab = labels[names[n]]
+        d = float((p.detach() - before[n]).abs().max())
+        out[lab] = max(out.get(lab, 0.0), d)
+    return out
+
+
+def check_updates(tag, upd, frozen=()):
+    for lab, d in upd.items():
+        if (lab in frozen or lab == "frozen") and d != 0.0:
+            raise AssertionError(f"{tag}: frozen group {lab} moved by {d}")
+        if lab not in frozen and lab != "frozen" and not d > 0.0:
+            raise AssertionError(f"{tag}: group {lab} did not move")
+
+
+def coarse_quality(codes, gold_codes):
+    """Coarse hit@1/@10 and per-level top-beam prefix accuracy of beam
+    codes (B, nb, M) against the gold documents' codes (B, M)."""
+    eq = codes == gold_codes[:, None, :]
+    full = eq.all(-1)
+    pref = np.cumprod(eq[:, 0], axis=1)
+    return {"hit@1": float(full[:, 0].mean()),
+            "hit@10": float(full.any(1).mean()),
+            "top_beam_prefix_acc": [float(x) for x in pref.mean(0)]}
+
+
+def train_phase(cfg, seed, dev, qtower, corpus):
+    """Phase 7 over phase 6's corpus: (a) the ``train`` command on the
+    card (``configs/marco_rq4x5.json`` in bf16 compute, dropout 0.1,
+    153,600 queries of the query language, 300 steps at batch 512, the
+    1,024-query dev probe); (b) the best tag restored bit for bit; (c)
+    the first batch in bf16 compute against float32 on the initial
+    weights; (d) a bf16 copy of the trained NCI, and of its initial
+    weights, served through ``BucketServer`` over the bf16 fill; (e) one
+    twin-tower and one joint step (then its EMA variant) at full width,
+    batch 64 with remat.  Returns the v3 launches of (d)'s trained
+    server."""
+    from mevi_tpu_torch import frozen_eval
+    from mevi_tpu_torch.cli.main import _nci_dims, load_config
+    from mevi_tpu_torch.cli.main import main as cli_main
+    from mevi_tpu_torch.data import io as dio
+    from mevi_tpu_torch.data import synth
+    from mevi_tpu_torch.data.datasets import NCIDataset
+    from mevi_tpu_torch.eval.searcher import FineIndex
+    from mevi_tpu_torch.models.nci import NCIT5
+    from mevi_tpu_torch.models.t5 import T5Dims, T5Model
+    from mevi_tpu_torch.models.twin_tower import Tower
+    from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.ops import rq as rq_ops
+    from mevi_tpu_torch.serve import BucketServer
+    from mevi_tpu_torch.train import joint as J
+    from mevi_tpu_torch.train import trainer as T
+    from mevi_tpu_torch.train.checkpoints import CheckpointManager
+    from mevi_tpu_torch.weights import flax_names, init_random_
+    P7 = TRAIN7
+    t_phase = time.perf_counter()
+    spec, draws, codes = corpus["spec"], corpus["draws"], corpus["codes"]
+    K, M, cap, nb = cfg["kary"], cfg["levels"], cfg["cap"], cfg["beams"]
+    Bq, lq = cfg["batch"], cfg["qlen"]
+    rng = np.random.default_rng(seed + 81)
+    secs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # ---- (a) the train command ------------------------------------
+        gold = rng.integers(0, spec.ndoc, P7["train_queries"])
+        tok = timed(secs, "query_tokens_s",
+                    lambda: synth.query_tokens(spec, draws[gold], rng))
+        dio.write_token_memmaps(osp.join(tmp, "q"), tok.astype(np.int64),
+                                np.ones_like(tok, np.int64))
+        np.save(osp.join(tmp, "codes.npy"), codes[gold])
+        dev_gold = rng.integers(0, spec.ndoc, P7["dev_queries"])
+        np.save(osp.join(tmp, "dev_q.npy"),
+                synth.query_tokens(spec, draws[dev_gold], rng))
+        np.save(osp.join(tmp, "dev_codes.npy"), codes[dev_gold])
+        with open(P7["config"]) as fr:
+            raw = json.load(fr)
+        raw["model"].update(dtype="bfloat16", dropout_rate=P7["dropout"])
+        raw["ckpt_dir"] = osp.join(tmp, "ckpts")
+        cfgp = osp.join(tmp, "config.json")
+        with open(cfgp, "w") as fw:
+            json.dump(raw, fw)
+        mcfg = load_config(cfgp)
+        if spec.vocab_size > mcfg.model.vocab_size:
+            raise AssertionError("7a: the query language's vocabulary "
+                                 "exceeds the model's")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = cli_main([
+            "train", "--config", cfgp, "--queries", osp.join(tmp, "q"),
+            "--query_length", str(lq), "--codes", osp.join(tmp, "codes.npy"),
+            "--device", str(dev), "--max_epochs", "1", "--log_every", "1",
+            "--log_dir", osp.join(tmp, "logs"),
+            "--dev_queries", osp.join(tmp, "dev_q.npy"),
+            "--dev_codes", osp.join(tmp, "dev_codes.npy")])
+        torch.cuda.synchronize()
+        secs["train_command_s"] = time.perf_counter() - t0
+        peak_train = torch.cuda.max_memory_allocated() / 1e9
+        log = next(Path(tmp, "logs").glob("*_metrics.jsonl"))
+        recs = [json.loads(ln) for ln in log.read_text().splitlines()]
+        steps = [r for r in recs if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        step_ms = np.diff([r["ts"] for r in steps]) * 1e3
+        if len(steps) != P7["steps"] or state.step != P7["steps"]:
+            raise AssertionError(f"7a: {len(steps)} steps logged, "
+                                 f"{state.step} taken")
+        if not np.isfinite(losses).all():
+            raise AssertionError("7a: a non-finite training loss")
+        ckdir = osp.join(tmp, "ckpts", "nci")
+        with open(osp.join(ckdir, "leaderboard.json")) as fr:
+            board = json.load(fr)
+        dims = state.model.dims
+        flops = nci_step_flops(dims, mcfg.train.train_batch_size, lq)
+        med = float(np.median(step_ms))
+        emit(phase="7a_train", steps=state.step,
+             batch=mcfg.train.train_batch_size, queries=len(gold),
+             step_ms_median=med,
+             step_ms_p10_p90=[float(np.percentile(step_ms, 10)),
+                              float(np.percentile(step_ms, 90))],
+             step_ms_min_max=[float(step_ms.min()), float(step_ms.max())],
+             queries_per_s=mcfg.train.train_batch_size / (med * 1e-3),
+             model_tflop_per_step=flops / 1e12,
+             bf16_dense_peak_share=flops / (med * 1e-3) / 989e12,
+             peak_device_gb=peak_train, card=card_line(),
+             loss_first_20=losses[:20], loss_last_20=losses[-20:],
+             dev_hit10_leaderboard=board, seconds=secs)
+
+        # ---- (b) the best tag restored bit for bit ---------------------
+        ckpts = CheckpointManager.from_dir(ckdir)
+        t0 = time.perf_counter()
+        restored = ckpts.restore(ckpts.best_tag())
+        secs["restore_s"] = time.perf_counter() - t0
+        live = {"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict()}
+        n_tensors = trees_equal("7b", live["model"], restored["model"]) \
+            + trees_equal("7b", live["optimizer"], restored["optimizer"])
+        emit(phase="7b_checkpoint", tag=ckpts.best_tag(),
+             monitor=ckpts.monitor, tensors_bitwise_equal=n_tensors,
+             restore_s=secs["restore_s"])
+        del restored, live
+
+        # ---- (c) bf16 compute against float32, first batch -------------
+        init = init_random_(NCIT5(_nci_dims(mcfg), device=dev),
+                            mcfg.train.seed)
+        first = next(NCIDataset(tok, np.ones_like(tok),
+                                codes[gold].astype(np.int32)).batches(
+            mcfg.train.train_batch_size,
+            np.random.default_rng(mcfg.train.seed)))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+        with torch.no_grad():
+            l32, _ = T.nci_loss_fn(init, batch, T.NCIStepConfig())
+            with T.compute_autocast(dev, torch.bfloat16):
+                l16, _ = T.nci_loss_fn(init, batch, T.NCIStepConfig())
+        gap = abs(float(l16) - float(l32)) / float(l32)
+        emit(phase="7c_bf16_vs_float32", loss_float32=float(l32),
+             loss_bf16_compute=float(l16), relative_gap=gap,
+             first_train_step_loss_with_dropout=losses[0])
+        if not gap <= P7["bf16_gap"]:
+            raise AssertionError(f"7c: bf16 loss {float(l16)} is {gap:.4f} "
+                                 f"off float32 {float(l32)}")
+
+        # ---- (d) the trained NCI served --------------------------------
+        semb = corpus["semb"]
+        if semb is None:
+            semb = timed(secs, "refill_bf16_s",
+                         lambda: synth.fill_sorted_matrix(
+                             spec, corpus["tables"], draws,
+                             corpus["doc_ids"], n_pad_rows=cap + 8,
+                             dtype=torch.bfloat16, device=dev))
+        offsets, doc_ids = corpus["offsets"], corpus["doc_ids"]
+        index = FineIndex(torch.from_numpy(offsets).to(dev),
+                          torch.from_numpy(doc_ids).to(dev), semb, M, K,
+                          host_offsets=offsets, host_doc_ids=doc_ids)
+        kw = dict(num_beams=nb, cap=cap, pool=cfg["pool"],
+                  length_penalty=cfg["length_penalty"], device=dev)
+        mask = torch.ones((Bq, lq), dtype=torch.int32, device=dev)
+        held = []
+        for _ in range(cfg["warmup"] + cfg["timed"]):
+            g = rng.integers(0, spec.ndoc, Bq)
+            held.append((torch.from_numpy(synth.query_tokens(
+                spec, draws[g], rng)).to(dev), g))
+        batches = [(i, mask, None) for i, _ in held]
+        served = {}
+        n_trained = 0
+        for name, model in (("trained", state.model), ("initial", init)):
+            nci16 = frozen_eval(copy.deepcopy(model).to(torch.bfloat16))
+            server = BucketServer(qtower, nci16, index, **kw)
+            reset_counts()
+            n, _ = run_path(f"7_{name}_serve", server, batches, cfg,
+                            B.bucket_scores_v3)
+            if name == "trained":
+                n_trained = n
+                ms, out, (cidx, q_rep, ts, tr) = serve_stages(
+                    server, batches[-1][0], mask, None)
+                err, n_sep = compare_pools(
+                    "7d_plain_bucket", (ts, tr),
+                    pool_with_plain(server, cidx, q_rep, Bq))
+                emit(phase="7d_plain_check", **ms, max_abs_pool_err=err,
+                     ids_compared=n_sep)
+            outs = [server.query(i, mask) for i, _ in held[cfg["warmup"]:]]
+            g_all = np.concatenate([g for _, g in held[cfg["warmup"]:]])
+            bc = np.concatenate([o[2] for o in outs])
+            ids = np.concatenate([o[1] for o in outs])
+            served[name] = dict(
+                coarse_quality(bc, codes[g_all]),
+                pool_filled=float(np.mean([(o[1] >= 0).mean()
+                                           for o in outs])),
+                gold_in_pool=float((ids == g_all[:, None]).any(1).mean()))
+            del server, nci16
+        emit(phase="7d_served", batches=cfg["timed"], batch=Bq,
+             v3_launches_trained=n_trained, **served)
+        del index, semb, init
+        corpus["semb"] = None
+        state.optimizer = None
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (e) a twin step and a joint step at full width ------------
+        n_b, n_neg, ld = P7["twin_batch"], P7["co_neg"], P7["doc_len"]
+        g = rng.integers(0, spec.ndoc, n_b)
+        q_ids = torch.from_numpy(synth.query_tokens(spec, draws[g], rng)
+                                 ).to(dev)
+        docs = torch.randint(2, cfg["vocab"], (n_b, 1 + n_neg, ld),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(seed + 83), device=dev)
+        ones = torch.ones_like
+        tdims = T5Dims(vocab_size=cfg["vocab"], d_model=cfg["d"],
+                       d_kv=cfg["d_kv"], d_ff=cfg["d_ff"],
+                       num_heads=cfg["heads"], num_layers=cfg["enc_layers"],
+                       num_decoder_layers=cfg["qdec_layers"],
+                       dropout_rate=0.0, remat=True, dtype=torch.bfloat16)
+        tower = Tower("t5", init_random_(T5Model(tdims, device=dev),
+                                         seed + 5))
+        tlabels = T.nci_param_labels(flax_names(tower.module).values())
+        topt = T.make_optimizer(mcfg.train, tower.module, total_steps=10)
+        tstate = T.init_state(tower.module, topt)
+        tstep = T.make_twin_train_step(tower, topt)
+        tb = {"query_ids": q_ids, "query_mask": ones(q_ids),
+              "doc_ids": docs.reshape(-1, ld),
+              "doc_mask": ones(docs.reshape(-1, ld))}
+        torch.cuda.reset_peak_memory_stats()
+        twin_ms = []
+        for _ in range(2):
+            before = snapshot(tower.module)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tstate, tm = tstep(tstate, tb)
+            co = float(tm["co_loss"])
+            twin_ms.append((time.perf_counter() - t0) * 1e3)
+        upd = group_updates(tower.module, before, tlabels)
+        check_updates("7e_twin", upd)
+        if not np.isfinite(co):
+            raise AssertionError("7e: non-finite twin loss")
+        emit(phase="7e_twin_step", batch=n_b, docs=n_b * (1 + n_neg),
+             doc_len=ld, remat=True, step_ms=twin_ms, co_loss=co,
+             max_update_by_group=upd,
+             peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del topt, tstate, before
+
+        ndims = _nci_dims(mcfg)
+        ndims = dataclasses.replace(
+            ndims, t5=dataclasses.replace(ndims.t5, remat=True))
+        nci = init_random_(NCIT5(ndims, device=dev), mcfg.train.seed)
+        model = J.JointModel(nci, tower,
+                             torch.from_numpy(corpus["cbs"]).to(dev))
+        paths = flax_names(model).values()
+        jb = {"query_ids": q_ids, "query_mask": ones(q_ids),
+              "pos_doc_ids": docs[:, 0], "pos_doc_mask": ones(docs[:, 0]),
+              "neg_doc_ids": docs[:, 1:], "neg_doc_mask": ones(docs[:, 1:])}
+        gen = torch.Generator().manual_seed(seed + 85)
+        joint = {}
+        torch.cuda.reset_peak_memory_stats()
+        # pq_loss 'ce' gives the NCI no gradient (its softmax is the
+        # stop-gradient target): the NCI is frozen there, and the EMA
+        # variant trains it on the runtime labels ('label')
+        for tag, pq_loss, fix in (("joint", "ce", {"fixnci": True}),
+                                  ("joint_ema", "label", {"fixpq": True})):
+            labels = J.joint_param_labels(paths, **fix)
+            opt = T.make_optimizer(mcfg.train, model, total_steps=10,
+                                   labels=labels)
+            jstate = T.init_state(model, opt)
+            jcfg = J.JointStepConfig(pq_loss=pq_loss)
+            before = snapshot(model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tag == "joint":
+                jstate, jm = J.make_joint_train_step(model, opt, jcfg)(
+                    jstate, jb, gen)
+            else:
+                ema = rq_ops.ema_init(model.codebooks.detach())
+                jstate, ema, jm = J.make_joint_train_step_ema(
+                    model, opt, jcfg)(jstate, ema, jb, gen)
+            jm = {k: float(v) for k, v in jm.items()}
+            ms = (time.perf_counter() - t0) * 1e3
+            if not np.isfinite(list(jm.values())).all():
+                raise AssertionError(f"7e_{tag}: non-finite losses {jm}")
+            upd = group_updates(model, before, labels)
+            if tag == "joint_ema":
+                # the codebooks are frozen to the optimizer and moved by
+                # the EMA
+                ema_move = float((model.codebooks.detach()
+                                  - before["codebooks"]).abs().max())
+                upd.pop("frozen")
+                if not ema_move > 0.0:
+                    raise AssertionError("7e: the EMA left the codebooks")
+                upd["codebooks_ema"] = ema_move
+            check_updates(f"7e_{tag}", upd)
+            joint[tag] = dict(pq_loss=pq_loss, fix=sorted(fix), step_ms=ms,
+                              losses=jm, max_update_by_group=upd)
+            del opt, jstate, before
+        emit(phase="7e_joint_steps", batch=n_b, co_neg=n_neg, doc_len=ld,
+             remat=True, **joint,
+             peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, nci, tower
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="7_done", seconds=time.perf_counter() - t_phase)
+    return n_trained
+
+
+def trees_equal(tag, a, b):
+    """Bitwise equality of two (nested) state dicts; returns the number
+    of tensors compared."""
+    if isinstance(a, torch.Tensor):
+        if not (a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())):
+            raise AssertionError(f"{tag}: a restored tensor differs")
+        return 1
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{tag}: restored keys differ")
+        return sum(trees_equal(tag, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{tag}: restored lengths differ")
+        return sum(trees_equal(tag, x, y) for x, y in zip(a, b))
+    if a != b:
+        raise AssertionError(f"{tag}: restored {b!r} != live {a!r}")
+    return 0
+
 
 
 def serve_phases(cfg, seed, dev, phase1_only=False):
@@ -1456,7 +1894,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     return p1, p1_i8, paths, int8_paths, n_eval, (qtower, nci)
 
 
-def run(cfg, seed, phase1_only=False, phase6_only=False):
+def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -1475,9 +1913,17 @@ def run(cfg, seed, phase1_only=False, phase6_only=False):
         emit(total_s=time.perf_counter() - t_start)
         print(card_line(), flush=True)
         return 0
-    if phase6_only:
-        n6 = synth_phase(cfg, seed, dev, *build_models(cfg, dev, seed))
-        emit(total_s=time.perf_counter() - t_start, synth_v3_launches=n6)
+    if phase6_only or phase7_only:
+        qtower, nci = build_models(cfg, dev, seed)
+        corpus, secs = synth_corpus(cfg, seed, dev)
+        out = {}
+        if phase6_only:
+            out["synth_v3_launches"] = synth_phase(cfg, seed, dev, qtower,
+                                                   nci, corpus, secs)
+        else:
+            out["trained_serve_v3_launches"] = train_phase(
+                cfg, seed, dev, qtower, corpus)
+        emit(total_s=time.perf_counter() - t_start, **out)
         print(card_line(), flush=True)
         return 0
     p1, p1_i8, paths, int8_paths, n_eval, models = serve_phases(cfg, seed,
@@ -1487,7 +1933,11 @@ def run(cfg, seed, phase1_only=False, phase6_only=False):
     n_build = build_phase(cfg, seed, dev, *models)
     gc.collect()
     torch.cuda.empty_cache()
-    n_synth, n_synth8 = synth_phase(cfg, seed, dev, *models)
+    corpus, secs = synth_corpus(cfg, seed, dev)
+    n_synth, n_synth8 = synth_phase(cfg, seed, dev, *models, corpus, secs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_trained = train_phase(cfg, seed, dev, models[0], corpus)
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -1503,10 +1953,11 @@ def run(cfg, seed, phase1_only=False, phase6_only=False):
         if "bound_ms_valid_rows" in r:
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
         if mode == "v3":
-            entry["launches"] += n_build + n_synth
+            entry["launches"] += n_build + n_synth + n_trained
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build,
-                                         "synth_corpus_serve": n_synth}
+                                         "synth_corpus_serve": n_synth,
+                                         "7_trained_serve": n_trained}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
@@ -1533,12 +1984,16 @@ def main(argv=None):
     ap.add_argument("--phase6-only", action="store_true",
                     help="build the kernels and the models, run phase 6 "
                          "and stop")
+    ap.add_argument("--phase7-only", action="store_true",
+                    help="build the kernels and the models, run phase 6a's "
+                         "corpus build, then phase 7, and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    return run(FULL, args.seed, args.phase1_only, args.phase6_only)
+    return run(FULL, args.seed, args.phase1_only, args.phase6_only,
+               args.phase7_only)
 
 
 if __name__ == "__main__":

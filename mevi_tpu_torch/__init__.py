@@ -24,6 +24,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def frozen_eval(module: torch.nn.Module) -> torch.nn.Module:
+    """The serving default of a model as it is built: ``eval()`` mode
+    (no dropout) and no gradients.  Training code turns both on
+    (``train()``, ``requires_grad_(True)``)."""
+    module.requires_grad_(False)
+    return module.eval()
+
+
 def as_device_tensor(x, device) -> torch.Tensor:
     """A tensor or array on ``device`` (no copy when it is there already;
     a read-only array, such as a memmap, is copied on the host first)."""

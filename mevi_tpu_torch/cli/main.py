@@ -1,11 +1,12 @@
 """Command line of the port (``mevi_tpu.cli.main``'s index-build,
-search and offline-metric subcommands; the others come with slices D
-and E):
+search, NCI-training and offline-metric subcommands; the others come
+with the next training PR and slice E):
 
   build-index    RQ codebooks + CSR fine index  (marco_generate_*_rq.sh)
   build-hier     hierarchical k-means ids, prefix clusters, trie tables
   search         exact MIPS top-k over embeddings, or an ADC scan over
                  RQ codes                              (faiss_search.py)
+  train          NCI seq2seq training              (marco_train_nci_rq.sh)
   evaluate       Recall/MRR of a ranks tsv against a gt tsv
   ensemble       ANCE + MEVI coarse/fine fusion grid  (ensemble_marco.py)
 
@@ -164,6 +165,141 @@ def cmd_search(args):
                        np.concatenate(out_scores), names)
 
 
+def _nci_dims(cfg, dropout=None):
+    """ModelConfig -> NCIDims honoring the reference's architecture flags
+    (adaptor_decode -> PAWA on/off, feed_forward_proj,
+    tie_decode_embedding; ``MEVI/main.py:755-779``)."""
+    from ..models.nci import NCIDims
+    from ..models.t5 import T5Dims
+    m = cfg.model
+    return NCIDims(
+        t5=T5Dims(vocab_size=m.vocab_size, d_model=m.d_model,
+                  d_kv=m.d_kv, d_ff=m.d_ff, num_heads=m.num_heads,
+                  num_layers=m.num_layers,
+                  num_decoder_layers=m.num_decoder_layers,
+                  dropout_rate=(m.dropout_rate if dropout is None
+                                else dropout),
+                  gated_act=(m.feed_forward_proj == "gated-gelu"),
+                  dtype=(torch.bfloat16 if m.dtype == "bfloat16"
+                         else torch.float32)),
+        kary=m.kary, max_output_length=m.max_output_length,
+        adaptor_layer_num=m.adaptor_layer_num,
+        adaptor_num_heads=m.adaptor_num_heads,
+        use_pawa=m.adaptor_decode,
+        tie_decode_embedding=m.tie_decode_embedding)
+
+
+def _dev_probe(args, model):
+    """The between-epoch dev coarse-hit@10 probe (``--dev_queries`` /
+    ``--dev_codes``), or None: checkpoints rank on retrieval, not on the
+    training loss (the reference's recall-monitored ModelCheckpoint,
+    ``main.py:89-170``)."""
+    if not (args.dev_queries and args.dev_codes):
+        return None
+    from ..decode.beam import nci_beam_search
+    from ..train.trainer import compute_autocast
+    dev = next(model.parameters()).device
+    dev_tok = np.load(args.dev_queries).astype(np.int32)
+    dev_gt = np.load(args.dev_codes).astype(np.int32)
+    pb = min(int(args.dev_batch), len(dev_tok))
+    n_probe = (len(dev_tok) // pb) * pb
+    probe_k = 10
+
+    def probe():
+        model.eval()
+        hits = 0
+        for s in range(0, n_probe, pb):
+            ids = torch.from_numpy(dev_tok[s:s + pb]).to(dev)
+            with compute_autocast(dev, model.dims.t5.dtype):
+                bc, _, _, _ = nci_beam_search(model, ids,
+                                              torch.ones_like(ids), probe_k)
+            eq = (bc.cpu().numpy() == dev_gt[s:s + pb, None, :]).all(-1)
+            hits += int(eq.any(1).sum())
+        return hits / max(n_probe, 1)
+    return probe
+
+
+def cmd_train(args):
+    """NCI training (``marco_train_nci_rq.sh``): seeded init, AdamW label
+    groups, per-epoch checkpoints ranked by the dev probe (or the loss),
+    ``--resume``.  Returns the final ``TrainState``."""
+    from .. import resolve_device
+    from ..data import io as dio
+    from ..data.datasets import NCIDataset, host_prefetch
+    from ..models.nci import NCIT5
+    from ..train import trainer as T
+    from ..train.checkpoints import CheckpointManager
+    from ..utils.logging import MetricsLogger, run_name
+    from ..weights import init_random_
+
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    m = cfg.model
+    model = init_random_(NCIT5(_nci_dims(cfg), device=dev), cfg.train.seed)
+
+    qids, qmask = dio.open_token_memmaps(args.queries, args.query_length)
+    codes = np.load(args.codes)
+    if args.train_tsv:
+        pairs = dio.read_query_docids_tsv(args.train_tsv)
+        codes = codes[np.array([ids[0] for _, ids in pairs])]
+    ds = NCIDataset(np.asarray(qids, np.int32)[:len(codes)],
+                    np.asarray(qmask, np.int32)[:len(codes)],
+                    codes.astype(np.int32))
+
+    rng = np.random.default_rng(cfg.train.seed)
+    bs = cfg.train.train_batch_size
+    total = max(len(ds) // bs, 1) * cfg.train.num_train_epochs
+    opt = T.make_optimizer(cfg.train, model, total_steps=total)
+    state = T.init_state(model, opt)
+    step = T.make_nci_train_step(
+        model, opt, T.NCIStepConfig(rdrop=m.rdrop, rdrop_loss=m.rdrop_loss))
+    logger = MetricsLogger(args.log_dir or cfg.ckpt_dir,
+                           run_name("nci", cfg))
+    dev_probe = _dev_probe(args, model)
+    ckpts = CheckpointManager(
+        osp.join(cfg.ckpt_dir, "nci"), keep=2,
+        monitor="dev_hit10" if dev_probe else "loss",
+        mode="max" if dev_probe else "min")
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    start_epoch = 0
+    if args.resume:
+        tag = (ckpts.best_tag()
+               if args.resume in ("1", "best", "auto") else args.resume)
+        if tag is not None:
+            restored = ckpts.restore(tag)
+            model.load_state_dict(restored["model"])
+            opt.load_state_dict(restored["optimizer"])
+            state.step = int(restored["step"])
+            start_epoch = int(restored["epoch"]) + 1
+            print(f"resumed from epoch {start_epoch}")
+    use_rng = m.dropout_rate > 0 or m.rdrop > 0
+    metrics = None
+    for epoch in range(start_epoch, cfg.train.num_train_epochs):
+        for batch in host_prefetch(ds.batches(bs, rng)):
+            state, metrics = step(state, batch, gen if use_rng else None)
+            if state.step % args.log_every == 0:
+                logger.log({k: float(v) for k, v in metrics.items()},
+                           state.step)
+        loss = float(metrics["loss"])
+        metric = loss
+        if dev_probe is not None:
+            hit10 = dev_probe()
+            metric = hit10
+            print(f"epoch {epoch}: loss {loss:.4f} "
+                  f"dev coarse hit@10 {hit10:.4f}")
+            logger.log({"dev_hit10": hit10}, state.step)
+        else:
+            print(f"epoch {epoch}: loss {loss:.4f}")
+        ckpts.save(f"epoch{epoch}",
+                   {"model": model.state_dict(),
+                    "optimizer": opt.state_dict(), "step": state.step,
+                    "epoch": epoch}, metric=metric)
+        if args.max_epochs and epoch + 1 >= args.max_epochs:
+            break
+    logger.close()
+    return state
+
+
 def cmd_evaluate(args):
     """Recall/MRR of a ranks tsv against a gt tsv (host only)."""
     from ..data import io as dio
@@ -262,6 +398,29 @@ def build_parser():
                     help="rq_codebooks.npy (required with --adc_codes)")
     sp.add_argument("--output", default=None)
     sp.set_defaults(fn=cmd_search)
+
+    sp = sub.add_parser("train")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--queries", required=True,
+                    help="token memmap prefix")
+    sp.add_argument("--query_length", type=int, default=32)
+    sp.add_argument("--codes", required=True,
+                    help="rq_codes.npy (per doc)")
+    sp.add_argument("--train_tsv", default=None,
+                    help="query->docid tsv aligning rows to codes")
+    sp.add_argument("--log_dir", default=None)
+    sp.add_argument("--log_every", type=int, default=50)
+    sp.add_argument("--max_epochs", type=int, default=0)
+    sp.add_argument("--resume", default=None,
+                    help="'best' or a checkpoint tag")
+    sp.add_argument("--dev_queries", default=None,
+                    help="npy (n, qlen) dev query tokens: enables the "
+                         "between-epoch coarse-hit@10 probe and ranks "
+                         "checkpoints on it (mode=max) instead of loss")
+    sp.add_argument("--dev_codes", default=None,
+                    help="npy (n, M) gt RQ codes for --dev_queries")
+    sp.add_argument("--dev_batch", type=int, default=256)
+    sp.set_defaults(fn=cmd_train)
 
     for sp in sub.choices.values():
         sp.add_argument("--device", default="cuda",

@@ -6,17 +6,21 @@ code c of level i at ``2 + i*kary + c``).  Logits are compact,
 ``(…, kary + 1)`` with columns ``[level-t codes..., EOS]``, and the PAWA
 weight delta enters through per-level slabs of the adaptor kernel, so
 the ``(d, V)`` per-position weight is never materialized.
+
+Training side: :func:`make_labels`, :func:`compact_labels` and
+:func:`compact_to_full_logits`; ``NCIT5.forward`` in ``train()`` mode
+applies the T5 and PAWA dropout.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from .. import resolve_device
+from .. import frozen_eval, resolve_device
 from .pawa import PawaAdaptor, PawaDims
 from .t5 import T5Dims, T5Stack, causal_mask, extend_mask
 
@@ -51,7 +55,8 @@ class NCIDims:
         return PawaDims(d_model=self.t5.d_model,
                         num_heads=self.adaptor_num_heads,
                         d_ff=self.adaptor_d_ff,
-                        num_layers=self.adaptor_layer_num)
+                        num_layers=self.adaptor_layer_num,
+                        dropout_rate=self.t5.dropout_rate)
 
 
 def codes_to_tokens(codes: torch.Tensor, kary: int) -> torch.Tensor:
@@ -66,6 +71,46 @@ def tokens_to_codes(tokens: torch.Tensor, kary: int) -> torch.Tensor:
     offs = torch.arange(tokens.shape[-1], dtype=tokens.dtype,
                         device=tokens.device) * kary
     return (tokens - 2 - offs).clamp(min=0)
+
+
+def make_labels(codes: torch.Tensor, kary: int, max_output_length: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codes (b, M) -> (labels (b, L), decoder_input_ids (b, L)), int32:
+    labels = [code tokens..., eos, pad]; inputs = the shift right with
+    start token 0."""
+    b = codes.shape[0]
+    toks = codes_to_tokens(codes.to(torch.int32), kary)
+    eos = torch.ones((b, 1), dtype=torch.int32, device=codes.device)
+    labels = torch.cat([toks, eos, eos - 1], 1)
+    inputs = torch.cat([eos - 1, toks, eos], 1)
+    if labels.shape[1] != max_output_length:
+        raise ValueError(f"codes of {codes.shape[1]} levels do not fill "
+                         f"max_output_length {max_output_length}")
+    return labels, inputs
+
+
+def compact_labels(codes: torch.Tensor, dims: "NCIDims") -> torch.Tensor:
+    """Labels in compact-column space, (b, L) int32: position t < M is
+    the code (column index), position M is ``kary`` (the EOS column) and
+    position M+1 is -100 (ignored: the padded slot)."""
+    b = codes.shape[0]
+    col = torch.full((b, 1), dims.kary, dtype=torch.int32,
+                     device=codes.device)
+    return torch.cat([codes.to(torch.int32), col, col * 0 - 100], 1)
+
+
+def compact_to_full_logits(compact: torch.Tensor, dims: "NCIDims",
+                           fill: float = NEG) -> torch.Tensor:
+    """Expand (b, L, kary+1) compact logits to the reference's
+    full-vocab masked layout (b, L, V), for parity checks."""
+    b, L, _ = compact.shape
+    K = dims.kary
+    full = torch.full((b, L, dims.decode_vocab_size), fill,
+                      dtype=compact.dtype, device=compact.device)
+    for t in range(L):
+        full[:, t, 2 + t * K:2 + (t + 1) * K] = compact[:, t, :K]
+    full[:, :, 1] = compact[:, :, K]
+    return full
 
 
 def _last_position_mask(K: int, device) -> torch.Tensor:
@@ -99,7 +144,7 @@ class NCIT5(nn.Module):
                 dims.decode_vocab_size, t5.d_model, **kw))
         if dims.reserve_decoder:
             self.ori_decoder = T5Stack(t5, 12, True, **kw)
-        self.requires_grad_(False)
+        frozen_eval(self)
 
     # -- encoder ---------------------------------------------------------
 

@@ -6,6 +6,10 @@ with a single learned memory vector; its output feeds the per-position
 LM-head weight delta composed in :mod:`mevi_tpu_torch.models.nci`.
 Cross-attention over one memory key is softmax over a single key, so at
 decode time each layer's cross block collapses to ``out_proj(v_mem)``.
+Training side: dropout on the attention probabilities, on each
+attention output and in the FF (``nn.TransformerDecoderLayer``'s
+places), active in ``train()`` mode only; the decode steps are
+inference paths.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import resolve_device
+from .. import frozen_eval, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +30,7 @@ class PawaDims:
     num_heads: int = 8
     d_ff: int = 2048
     num_layers: int = 4
+    dropout_rate: float = 0.1
     layer_norm_epsilon: float = 1e-5
 
 
@@ -43,6 +48,7 @@ class TorchMultiheadAttention(nn.Module):
             torch.zeros(3 * dm, device=device, dtype=dtype))
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = nn.Linear(dm, dm, device=device, dtype=dtype)
+        self.dropout = nn.Dropout(dims.dropout_rate)
 
     def _split(self, x):
         h = self.dims.num_heads
@@ -77,7 +83,7 @@ class TorchMultiheadAttention(nn.Module):
         if attn_mask is not None:
             scores = scores + attn_mask
         probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", self.dropout(probs), v)
         b, l = ctx.shape[:2]
         return self.out_proj(ctx.reshape(b, l, self.dims.d_model))
 
@@ -106,13 +112,17 @@ class TorchDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d.d_model, **ln)
         self.linear1 = nn.Linear(d.d_model, d.d_ff, **kw)
         self.linear2 = nn.Linear(d.d_ff, d.d_model, **kw)
+        self.dropout = nn.Dropout(d.dropout_rate)
 
     def _ff(self, x):
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+        ff = self.dropout(F.relu(self.linear1(x)))
+        return self.norm3(x + self.dropout(self.linear2(ff)))
 
     def forward(self, tgt, memory, tgt_mask=None):
-        x = self.norm1(tgt + self.self_attn(tgt, tgt, tgt_mask))
-        x = self.norm2(x + self.cross_attn(x, memory, None))
+        sa = self.self_attn(tgt, tgt, tgt_mask)
+        x = self.norm1(tgt + self.dropout(sa))
+        ca = self.cross_attn(x, memory, None)
+        x = self.norm2(x + self.dropout(ca))
         return self._ff(x)
 
     def decode_step_unrolled(self, x_t, t: int, entries_i, mem_const):
@@ -165,7 +175,7 @@ class PawaAdaptor(nn.Module):
         self.layers = nn.ModuleList(
             TorchDecoderLayer(dims, device=dev, dtype=dtype)
             for _ in range(dims.num_layers))
-        self.requires_grad_(False)
+        frozen_eval(self)
 
     def _panel_inputs(self, tgt_embeds):
         """(causal additive mask (1, 1, l, l), memory (b, 1, d))."""

@@ -9,7 +9,16 @@
   per-position decode cache entries as tuples over layers of ``(k, v)``
   arrays of shape ``(rows, h, dk)``, as in the JAX package.
 
-Inference only: no dropout, no remat.
+Training side: dropout where the JAX modules place it (inside the FF,
+on each residual branch, on a stack's input embeddings and on its
+output before the final norm; none on attention probabilities), active
+in ``train()`` mode only.  A module is built in ``eval()`` mode with its
+parameters frozen, the serving default; training code turns both on.
+``T5Dims.remat`` wraps each block in ``torch.utils.checkpoint``
+(non-reentrant, RNG state preserved, so dropout replays identically).
+``T5Dims.dtype`` is the compute dtype: the training steps run the
+forward under ``torch.autocast`` in it over float32 parameters
+(``mevi_tpu_torch.train.trainer.compute_autocast``).
 """
 
 from __future__ import annotations
@@ -20,8 +29,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .. import resolve_device
+from .. import frozen_eval, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +46,10 @@ class T5Dims:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
+    dropout_rate: float = 0.1
     gated_act: bool = False      # False: relu (t5 v1.0 / t5-ance)
+    remat: bool = False          # checkpoint blocks (training memory)
+    dtype: torch.dtype = torch.float32   # compute dtype
 
 
 class RMSNorm(nn.Module):
@@ -174,13 +187,14 @@ class T5FF(nn.Module):
         else:
             self.wi = nn.Linear(d.d_model, d.d_ff, **kw)
         self.wo = nn.Linear(d.d_ff, d.d_model, **kw)
+        self.dropout = nn.Dropout(d.dropout_rate)
 
     def forward(self, x):
         if self.gated:
             h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
         else:
             h = F.relu(self.wi(x))
-        return self.wo(h)
+        return self.wo(self.dropout(h))
 
 
 class T5Block(nn.Module):
@@ -199,19 +213,21 @@ class T5Block(nn.Module):
                                       **kw)
         self.ff = T5FF(d, **kw)
         self.ff_norm = RMSNorm(d.d_model, d.layer_norm_epsilon, **kw)
+        self.dropout = nn.Dropout(d.dropout_rate)
 
     def forward(self, hidden, self_mask=None, position_bias=None,
                 enc_hidden=None, enc_mask=None, cross_kv=None):
         y, position_bias = self.self_attn(
             self.self_norm(hidden), mask=self_mask,
             position_bias=position_bias)
-        hidden = hidden + y
+        hidden = hidden + self.dropout(y)
         if self.is_decoder:
             y, _ = self.cross_attn(
                 self.cross_norm(hidden), kv_hidden=enc_hidden,
                 mask=enc_mask, kv_cache=cross_kv)
-            hidden = hidden + y
-        return hidden + self.ff(self.ff_norm(hidden)), position_bias
+            hidden = hidden + self.dropout(y)
+        y = self.ff(self.ff_norm(hidden))
+        return hidden + self.dropout(y), position_bias
 
 
 def _cross_ffn_step(block, hidden, cross_kv, enc_mask, beams):
@@ -268,16 +284,22 @@ class T5Stack(nn.Module):
             for i in range(num_layers))
         self.final_norm = RMSNorm(d.d_model, d.layer_norm_epsilon,
                                   device=device, dtype=dtype)
+        self.dropout = nn.Dropout(d.dropout_rate)
 
     def forward(self, embeds, self_mask=None, enc_hidden=None,
                 enc_mask=None, cross_kvs=None):
-        hidden = embeds
+        hidden = self.dropout(embeds)
         position_bias = None
+        remat = self.dims.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            ckv = None if cross_kvs is None else cross_kvs[i]
-            hidden, position_bias = block(hidden, self_mask, position_bias,
-                                          enc_hidden, enc_mask, ckv)
-        return self.final_norm(hidden)
+            args = (hidden, self_mask, position_bias, enc_hidden, enc_mask,
+                    None if cross_kvs is None else cross_kvs[i])
+            if remat:
+                hidden, position_bias = checkpoint(block, *args,
+                                                   use_reentrant=False)
+            else:
+                hidden, position_bias = block(*args)
+        return self.final_norm(self.dropout(hidden))
 
     def project_cross_kvs(self, enc_hidden):
         """Each layer's cross-attention (k, v), once per query."""
@@ -341,6 +363,23 @@ class T5Stack(nn.Module):
         return self.final_norm(hidden), tuple(new_kv)
 
 
+class T5EncoderModel(nn.Module):
+    """Shared-embedding encoder (query/passage tower front end)."""
+
+    def __init__(self, dims: T5Dims, device="cuda", dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dims = dims
+        kw = dict(device=dev, dtype=dtype)
+        self.shared = nn.Embedding(dims.vocab_size, dims.d_model, **kw)
+        self.encoder = T5Stack(dims, dims.num_layers, False, **kw)
+        frozen_eval(self)
+
+    def forward(self, input_ids, attention_mask=None):
+        return self.encoder(self.shared(input_ids.long()),
+                            self_mask=extend_mask(attention_mask))
+
+
 class T5Model(nn.Module):
     """Encoder + decoder without LM head: the T5-ANCE query tower
     (representation = decoder token-0 hidden state)."""
@@ -356,7 +395,7 @@ class T5Model(nn.Module):
         self.shared = nn.Embedding(d.vocab_size, d.d_model, **kw)
         self.encoder = T5Stack(d, d.num_layers, False, **kw)
         self.decoder = T5Stack(d, n_dec, True, **kw)
-        self.requires_grad_(False)
+        frozen_eval(self)
 
     def encode(self, input_ids, attention_mask=None):
         return self.encoder(self.shared(input_ids.long()),

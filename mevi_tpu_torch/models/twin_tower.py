@@ -1,0 +1,106 @@
+"""Twin-tower dense encoder (port of ``mevi_tpu.models.twin_tower``; the
+reference's DocumentEncoder, ``MEVI/document_encoder.py``).
+
+* T5 family (T5-ANCE): representation = decoder token-0 hidden state
+  with a single zero decoder input,
+* BERT family (coCondenser / AR2-ERNIE): CLS hidden state,
+* in-batch-negative contrastive loss with the reference's target layout:
+  with p_reps grouped per query (1 positive + n negatives),
+  ``target_i = i * (n_p // n_q)``.
+
+Cross-device negatives (the JAX package's ``axis_name`` all-gather)
+belong to the multi-device slice (slice E) and raise until then.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .bert import BertDims, BertEncoderModel
+from .t5 import T5Dims, T5Model
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class Tower(NamedTuple):
+    family: str          # 't5' | 'bert'
+    module: nn.Module    # T5Model | BertEncoderModel
+
+    def rep(self, input_ids, attention_mask, token_type_ids=None
+            ) -> torch.Tensor:
+        if self.family == "t5":
+            return self.module.first_token_rep(input_ids, attention_mask)
+        return self.module.cls_rep(input_ids, attention_mask,
+                                   token_type_ids)
+
+
+def make_tower(family: str, dims=None, device="cuda",
+               dtype=torch.float32) -> Tower:
+    """``dtype``: the parameters' dtype (``dims.dtype`` is the compute
+    dtype)."""
+    if family == "t5":
+        dims = dims or T5Dims(num_decoder_layers=12)  # t5-ance: full dec
+        return Tower("t5", T5Model(dims, device=device, dtype=dtype))
+    dims = dims or BertDims()
+    return Tower("bert", BertEncoderModel(dims, device=device, dtype=dtype))
+
+
+def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32) -> Tower:
+    """Tower built from a :class:`mevi_tpu_torch.config.EncoderConfig`
+    (dropout 0, as the JAX package builds it); ``enc_cfg.dtype`` is the
+    compute dtype, ``dtype`` the parameters'."""
+    if enc_cfg.family == "t5":
+        dims = T5Dims(
+            d_model=enc_cfg.d_model, num_layers=enc_cfg.num_layers,
+            # T5-ANCE is a full t5-base: decoder depth == encoder depth
+            num_decoder_layers=enc_cfg.num_layers,
+            num_heads=enc_cfg.num_heads,
+            d_kv=enc_cfg.d_model // enc_cfg.num_heads, d_ff=enc_cfg.d_ff,
+            vocab_size=enc_cfg.t5_vocab_size, dropout_rate=0.0,
+            dtype=_DTYPES[enc_cfg.dtype])
+        return Tower("t5", T5Model(dims, device=device, dtype=dtype))
+    dims = BertDims(
+        vocab_size=enc_cfg.vocab_size, d_model=enc_cfg.d_model,
+        num_layers=enc_cfg.num_layers, num_heads=enc_cfg.num_heads,
+        d_ff=enc_cfg.d_ff,
+        max_position_embeddings=enc_cfg.max_position_embeddings,
+        type_vocab_size=enc_cfg.type_vocab_size, dropout_rate=0.0)
+    return Tower("bert", BertEncoderModel(dims, device=device, dtype=dtype))
+
+
+def similarity(q_reps: torch.Tensor, p_reps: torch.Tensor,
+               bmm: bool = False) -> torch.Tensor:
+    """``compute_similarity`` (``document_encoder.py:128-132``), float32
+    products with float32 output."""
+    if bmm:
+        return (q_reps * p_reps).sum(-1)
+    return q_reps.float() @ p_reps.float().transpose(-1, -2)
+
+
+def contrastive_loss(q_reps: torch.Tensor, p_reps: torch.Tensor,
+                     axis_name: Optional[str] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """In-batch-negative CE loss; p_reps rows are grouped per query:
+    [q0_pos, q0_neg..., q1_pos, ...].  Returns (loss, scores)."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "cross-device negatives (axis_name) come with the port's "
+            "multi-device slice (slice E, torch.distributed)")
+    scores = similarity(q_reps, p_reps)
+    nq = q_reps.shape[0]
+    group = p_reps.shape[0] // nq
+    targets = torch.arange(nq, device=scores.device) * group
+    logprobs = torch.log_softmax(scores, dim=-1)
+    loss = -logprobs.gather(1, targets[:, None]).mean()
+    return loss, scores
+
+
+def grouped_contrastive_loss(q_reps: torch.Tensor,
+                             p_reps: torch.Tensor) -> torch.Tensor:
+    """Per-query candidate groups: q (nq, d), p (nq, g, d), positive at
+    slot 0 (the in-cluster hard-negative loss)."""
+    scores = torch.einsum("qd,qgd->qg", q_reps.float(), p_reps.float())
+    return -torch.log_softmax(scores, dim=-1)[:, 0].mean()

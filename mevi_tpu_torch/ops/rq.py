@@ -1,6 +1,5 @@
 """Residual quantization (RQ) and PQ on the device (port of
-``mevi_tpu.ops.rq``, less the EMA codebook update, which comes with
-training).
+``mevi_tpu.ops.rq``).
 
 * training: per-level k-means over residuals (``pq.py:582-594``) with
   :mod:`.kmeans`;
@@ -8,7 +7,9 @@ training).
   (``pq.py:337-369`` / ``pq.py:281-305``);
 * reconstruction: sum of selected centroids over levels (``pq.py:768-784``);
 * codebook beam search over the code space (``pq.py:613-713``);
-* Hungarian codebook alignment across refits (``pq.py:600-611``).
+* Hungarian codebook alignment across refits (``pq.py:600-611``);
+* the EMA codebook update of joint training (``pq.py:371-433``), its
+  dead-code restart drawing rows from a ``torch.Generator``.
 
 Codebooks are a dense (M, K, d) tensor; codes are int32 (n, M).  Row
 passes over a corpus are chunked so no (n, d) float32 copy of a bf16
@@ -338,6 +339,55 @@ def align_codebooks(old: np.ndarray, new: np.ndarray,
         cid, oid = linear_sum_assignment(scores, maximize=True)
         out[lvl][oid] = c[cid]
     return out
+
+
+# --------------------------------------------------------------------------
+# EMA codebook update (pq.py:371-433)
+# --------------------------------------------------------------------------
+
+class EMAState(NamedTuple):
+    cluster_size: torch.Tensor   # (M, K) float32
+    embed_sum: torch.Tensor      # (M, K, d) float32
+
+
+def ema_init(codebooks: torch.Tensor) -> EMAState:
+    M, K, _ = codebooks.shape
+    return EMAState(torch.zeros((M, K), dtype=torch.float32,
+                                device=codebooks.device),
+                    codebooks.detach().float().clone())
+
+
+@torch.no_grad()
+def ema_update(state: EMAState, codebooks: torch.Tensor,
+               vectors: torch.Tensor, codes: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               decay: float = 0.99, eps: float = 1e-5, restart: bool = True,
+               ) -> Tuple[EMAState, torch.Tensor]:
+    """One EMA step from a batch of (vectors, codes); returns (state,
+    new codebooks in ``codebooks``' dtype).
+
+    Every level accumulates the full vector, not the residual (the
+    reference expands vectors across levels, ``pq.py:375-377``).  With
+    ``restart``, a centroid whose decayed count falls below 1 restarts
+    at a row drawn from ``generator`` (on the vectors' device), its count
+    set to 1."""
+    M, K, _ = codebooks.shape
+    v = vectors.detach().float()
+    onehot = torch.nn.functional.one_hot(codes.long(), K).float()  # (n,M,K)
+    counts = onehot.sum(0)
+    sums = torch.einsum("nmk,nd->mkd", onehot, v)
+    new_size = state.cluster_size * decay + counts * (1 - decay)
+    new_sum = state.embed_sum * decay + sums * (1 - decay)
+    if restart:
+        rows = torch.randint(0, v.shape[0], (M, K), generator=generator,
+                             device=v.device)
+        used = new_size >= 1.0
+        new_sum = torch.where(used[..., None], new_sum, v[rows])
+        new_size = torch.where(used, new_size, torch.ones_like(new_size))
+    tot = new_size.sum(1, keepdim=True)
+    norm = tot * (new_size + eps) / (tot + K * eps)
+    new_codebooks = (new_sum / norm[..., None]).to(codebooks.dtype)
+    return EMAState(new_size, new_sum), new_codebooks
 
 
 # --------------------------------------------------------------------------

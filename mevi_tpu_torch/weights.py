@@ -12,7 +12,11 @@ names (``encoder.blocks.0.self_attn.q.weight``):
   ``memory_embedding``, ``untied_head``) carry over as they are.
 
 The caller flattens (``flax.traverse_util.flatten_dict(params, sep="/")``),
-so the port itself never sees JAX.
+so the port itself never sees JAX.  ``state_dict_to_flax`` is the exact
+inverse: it reads each parameter's owner module to tell a Linear
+``kernel`` from an Embedding ``embedding``, a LayerNorm ``scale`` and an
+RMSNorm ``weight``; ``flax_names`` gives the flax path of each parameter
+(the optimizer's labels and decay mask are rules on those paths).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from torch import nn
 
 _INDEXED = re.compile(r"^(block|layer)_(\d+)$")
+_INDEXED_PATH = re.compile(r"\b(block|layer)s\.(\d+)\b")
 
 
 def _module_name(part: str) -> str:
@@ -51,6 +56,46 @@ def flax_to_state_dict(flat: Dict[str, np.ndarray]
             leaf = "weight"
         name = ".".join([_module_name(p) for p in parts[:-1]] + [leaf])
         out[name] = t.contiguous()
+    return out
+
+
+def _flax_leaf(owner: nn.Module, leaf: str) -> str:
+    if leaf == "weight":
+        for cls, name in ((nn.Linear, "kernel"), (nn.Embedding, "embedding"),
+                          (nn.LayerNorm, "scale")):
+            if isinstance(owner, cls):
+                return name
+    if leaf == "in_proj_weight":
+        return "in_proj_kernel"
+    return leaf
+
+
+def flax_names(module: nn.Module) -> Dict[str, str]:
+    """Each parameter's name -> its flattened flax path
+    (``encoder.blocks.0.self_attn.q.weight`` ->
+    ``encoder/block_0/self_attn/q/kernel``)."""
+    owners = dict(module.named_modules())
+    out = {}
+    for name, _ in module.named_parameters():
+        mod_path, _, leaf = name.rpartition(".")
+        path = _INDEXED_PATH.sub(r"\1_\2", mod_path)
+        out[name] = "/".join(filter(None, path.split(".")
+                                    + [_flax_leaf(owners[mod_path], leaf)]))
+    return out
+
+
+def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
+    """``module``'s parameters as flattened flax params (numpy, bf16 as
+    float32): the inverse of :func:`flax_to_state_dict`."""
+    params = dict(module.named_parameters())
+    out = {}
+    for name, path in flax_names(module).items():
+        t = params[name].detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        if path.rsplit("/", 1)[-1] in ("kernel", "in_proj_kernel"):
+            t = t.T
+        out[path] = t.contiguous().numpy().copy()
     return out
 
 

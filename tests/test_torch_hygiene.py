@@ -74,7 +74,9 @@ def _entry_points(tmp=None):
     from mevi_tpu_torch.index.hierarchical import hierarchical_kmeans_ids
     from mevi_tpu_torch.models.nci import NCIDims, NCIT5
     from mevi_tpu_torch.models.pawa import PawaAdaptor, PawaDims
-    from mevi_tpu_torch.models.t5 import T5Dims, T5Model
+    from mevi_tpu_torch.models.bert import BertDims, BertEncoderModel
+    from mevi_tpu_torch.models.t5 import T5Dims, T5EncoderModel, T5Model
+    from mevi_tpu_torch.models.twin_tower import make_tower
     from mevi_tpu_torch.ops.adc import adc_search, fill_onehot_matrix
     from mevi_tpu_torch.ops.kmeans import kmeans_fit
     from mevi_tpu_torch.ops.rq import rq_train
@@ -119,6 +121,11 @@ def _entry_points(tmp=None):
     obs = ceiling.observed_info(spec, qtok)
     return {
         "T5Model": lambda **kw: T5Model(t5, **kw),
+        "T5EncoderModel": lambda **kw: T5EncoderModel(t5, **kw),
+        "BertEncoderModel": lambda **kw: BertEncoderModel(BertDims(
+            vocab_size=16, d_model=8, num_layers=1, num_heads=2, d_ff=8,
+            max_position_embeddings=8), **kw),
+        "make_tower": lambda **kw: make_tower("t5", t5, **kw),
         "NCIT5": lambda **kw: NCIT5(nd, **kw),
         "PawaAdaptor": lambda **kw: PawaAdaptor(PawaDims(8, 2, 8, 1), **kw),
         "build_fine_index": lambda **kw: build_fine_index(codes, emb, 2,
@@ -171,7 +178,8 @@ def _entry_points(tmp=None):
     }
 
 
-ENTRY_NAMES = ["T5Model", "NCIT5", "PawaAdaptor", "build_fine_index",
+ENTRY_NAMES = ["T5Model", "T5EncoderModel", "BertEncoderModel",
+               "make_tower", "NCIT5", "PawaAdaptor", "build_fine_index",
                "FineReranker", "BucketServer", "bucket_scores_v3",
                "bucket_scores_fused", "bucket_scores_v2", "bucket_scores",
                "bucket_scores_dispatch", "streaming_mips_topk",
