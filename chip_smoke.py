@@ -1501,25 +1501,47 @@ def train_phase(cfg, seed, dev, qtower, corpus):
         if spec.vocab_size > mcfg.model.vocab_size:
             raise AssertionError("7a: the query language's vocabulary "
                                  "exceeds the model's")
+        # Each step is bracketed by CUDA events and its loss kept on the
+        # card, read after the run: the command logs at its default
+        # interval, so no per-step float() drains the queue.
+        step_ev, step_loss = [], []
+        make_step = T.make_nci_train_step
+
+        def observed_step(*a, **kw):
+            inner = make_step(*a, **kw)
+
+            def step(state, batch, rng=None):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state, metrics = inner(state, batch, rng)
+                ev[1].record()
+                step_ev.append(ev)
+                step_loss.append(metrics["loss"])
+                return state, metrics
+            return step
+
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state = cli_main([
-            "train", "--config", cfgp, "--queries", osp.join(tmp, "q"),
-            "--query_length", str(lq), "--codes", osp.join(tmp, "codes.npy"),
-            "--device", str(dev), "--max_epochs", "1", "--log_every", "1",
-            "--log_dir", osp.join(tmp, "logs"),
-            "--dev_queries", osp.join(tmp, "dev_q.npy"),
-            "--dev_codes", osp.join(tmp, "dev_codes.npy")])
+        T.make_nci_train_step = observed_step
+        try:
+            state = cli_main([
+                "train", "--config", cfgp, "--queries", osp.join(tmp, "q"),
+                "--query_length", str(lq),
+                "--codes", osp.join(tmp, "codes.npy"),
+                "--device", str(dev), "--max_epochs", "1",
+                "--log_dir", osp.join(tmp, "logs"),
+                "--dev_queries", osp.join(tmp, "dev_q.npy"),
+                "--dev_codes", osp.join(tmp, "dev_codes.npy")])
+        finally:
+            T.make_nci_train_step = make_step
         torch.cuda.synchronize()
         secs["train_command_s"] = time.perf_counter() - t0
         peak_train = torch.cuda.max_memory_allocated() / 1e9
-        log = next(Path(tmp, "logs").glob("*_metrics.jsonl"))
-        recs = [json.loads(ln) for ln in log.read_text().splitlines()]
-        steps = [r for r in recs if "loss" in r]
-        losses = [r["loss"] for r in steps]
-        step_ms = np.diff([r["ts"] for r in steps]) * 1e3
-        if len(steps) != P7["steps"] or state.step != P7["steps"]:
-            raise AssertionError(f"7a: {len(steps)} steps logged, "
+        step_ms = np.array([a.elapsed_time(b) for a, b in step_ev])
+        window_ms = step_ev[0][0].elapsed_time(step_ev[-1][1])
+        losses = torch.stack(step_loss).float().cpu().numpy().tolist()
+        if len(step_ev) != P7["steps"] or state.step != P7["steps"]:
+            raise AssertionError(f"7a: {len(step_ev)} steps observed, "
                                  f"{state.step} taken")
         if not np.isfinite(losses).all():
             raise AssertionError("7a: a non-finite training loss")
@@ -1535,6 +1557,7 @@ def train_phase(cfg, seed, dev, qtower, corpus):
              step_ms_p10_p90=[float(np.percentile(step_ms, 10)),
                               float(np.percentile(step_ms, 90))],
              step_ms_min_max=[float(step_ms.min()), float(step_ms.max())],
+             step_ms_window_mean=window_ms / len(step_ev),
              queries_per_s=mcfg.train.train_batch_size / (med * 1e-3),
              model_tflop_per_step=flops / 1e12,
              bf16_dense_peak_share=flops / (med * 1e-3) / 989e12,
@@ -1652,7 +1675,7 @@ def train_phase(cfg, seed, dev, qtower, corpus):
         tlabels = T.nci_param_labels(flax_names(tower.module).values())
         topt = T.make_optimizer(mcfg.train, tower.module, total_steps=10)
         tstate = T.init_state(tower.module, topt)
-        tstep = T.make_twin_train_step(tower, topt)
+        tstep = T.make_twin_train_step(tower)
         tb = {"query_ids": q_ids, "query_mask": ones(q_ids),
               "doc_ids": docs.reshape(-1, ld),
               "doc_mask": ones(docs.reshape(-1, ld))}
@@ -1702,12 +1725,12 @@ def train_phase(cfg, seed, dev, qtower, corpus):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if tag == "joint":
-                jstate, jm = J.make_joint_train_step(model, opt, jcfg)(
+                jstate, jm = J.make_joint_train_step(model, jcfg)(
                     jstate, jb, gen)
             else:
                 ema = rq_ops.ema_init(model.codebooks.detach())
                 jstate, ema, jm = J.make_joint_train_step_ema(
-                    model, opt, jcfg)(jstate, ema, jb, gen)
+                    model, jcfg)(jstate, ema, jb, gen)
             jm = {k: float(v) for k, v in jm.items()}
             ms = (time.perf_counter() - t0) * 1e3
             if not np.isfinite(list(jm.values())).all():

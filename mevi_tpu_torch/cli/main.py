@@ -165,7 +165,7 @@ def cmd_search(args):
                        np.concatenate(out_scores), names)
 
 
-def _nci_dims(cfg, dropout=None):
+def _nci_dims(cfg):
     """ModelConfig -> NCIDims honoring the reference's architecture flags
     (adaptor_decode -> PAWA on/off, feed_forward_proj,
     tie_decode_embedding; ``MEVI/main.py:755-779``)."""
@@ -177,8 +177,7 @@ def _nci_dims(cfg, dropout=None):
                   d_kv=m.d_kv, d_ff=m.d_ff, num_heads=m.num_heads,
                   num_layers=m.num_layers,
                   num_decoder_layers=m.num_decoder_layers,
-                  dropout_rate=(m.dropout_rate if dropout is None
-                                else dropout),
+                  dropout_rate=m.dropout_rate,
                   gated_act=(m.feed_forward_proj == "gated-gelu"),
                   dtype=(torch.bfloat16 if m.dtype == "bfloat16"
                          else torch.float32)),
@@ -252,7 +251,7 @@ def cmd_train(args):
     opt = T.make_optimizer(cfg.train, model, total_steps=total)
     state = T.init_state(model, opt)
     step = T.make_nci_train_step(
-        model, opt, T.NCIStepConfig(rdrop=m.rdrop, rdrop_loss=m.rdrop_loss))
+        model, T.NCIStepConfig(rdrop=m.rdrop, rdrop_loss=m.rdrop_loss))
     logger = MetricsLogger(args.log_dir or cfg.ckpt_dir,
                            run_name("nci", cfg))
     dev_probe = _dev_probe(args, model)

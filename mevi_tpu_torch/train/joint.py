@@ -29,9 +29,8 @@ from ..models import twin_tower as tt
 from ..models.nci import NCIT5, compact_labels, make_labels
 from ..ops import rq as rq_ops
 from . import losses as L
-from .trainer import (GroupedAdamW, TrainState, apply_gradients,
-                      compute_autocast, detach_metrics, dropout_rng,
-                      model_device, to_device)
+from .trainer import (TrainState, apply_gradients, compute_autocast,
+                      detach_metrics, dropout_rng, model_device, to_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,8 +153,7 @@ def _joint_forward(model, cfg, batch, rng):
         return joint_loss_fn(model, to_device(batch, dev), cfg)
 
 
-def make_joint_train_step(model: JointModel, optimizer: GroupedAdamW,
-                          cfg: JointStepConfig):
+def make_joint_train_step(model: JointModel, cfg: JointStepConfig):
     """``step(state, batch, rng=None) -> (state, metrics)``; ``rng``: a
     ``torch.Generator`` for the NCI's dropout, or None."""
     def step(state: TrainState, batch, rng=None):
@@ -167,8 +165,8 @@ def make_joint_train_step(model: JointModel, optimizer: GroupedAdamW,
     return step
 
 
-def make_joint_train_step_ema(model: JointModel, optimizer: GroupedAdamW,
-                              cfg: JointStepConfig, decay: float = 0.99):
+def make_joint_train_step_ema(model: JointModel, cfg: JointStepConfig,
+                              decay: float = 0.99):
     """Variant with EMA codebook updates (``--pq_update_method ema``,
     ``pq.py:371-433``): gradients never move the codebooks (label them
     'frozen'); after each update the positives are re-embedded by the

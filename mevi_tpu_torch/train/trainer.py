@@ -300,7 +300,7 @@ def nci_loss_fn(model: NCIT5, batch: Dict[str, torch.Tensor],
     return loss, metrics
 
 
-def make_nci_train_step(model: NCIT5, optimizer: GroupedAdamW,
+def make_nci_train_step(model: NCIT5,
                         step_cfg: NCIStepConfig = NCIStepConfig()):
     """``step(state, batch, rng=None) -> (state, metrics)``: one
     micro-batch through the model (in place) and the optimizer.
@@ -325,7 +325,7 @@ def make_nci_train_step(model: NCIT5, optimizer: GroupedAdamW,
 # twin-tower training step (contrastive with sampled hard negatives)
 # --------------------------------------------------------------------------
 
-def make_twin_train_step(tower, optimizer: GroupedAdamW,
+def make_twin_train_step(tower,
                          negatives_x_device: Optional[str] = None):
     """``step(state, batch) -> (state, metrics)``; batch: query_ids/mask
     (b, Lq), doc_ids/mask (b*(1+neg), Ld) grouped per query with the

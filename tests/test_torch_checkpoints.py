@@ -101,7 +101,7 @@ def _trainer(model, accumulation):
     cfg = TrainConfig(learning_rate=1e-3, decoder_learning_rate=5e-4,
                       weight_decay=0.1, gradient_accumulation=accumulation)
     opt = PT.make_optimizer(cfg, model, total_steps=8)
-    return PT.init_state(model, opt), PT.make_nci_train_step(model, opt)
+    return PT.init_state(model, opt), PT.make_nci_train_step(model)
 
 
 def _equal_trees(a, b):

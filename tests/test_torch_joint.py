@@ -136,7 +136,7 @@ def test_joint_step_equals_jax(setup, case):
     opt = PT.make_optimizer(TrainConfig(**TRAIN), model, total_steps=4,
                             labels=labels)
     state, pm = PJ.make_joint_train_step(
-        model, opt, PJ.JointStepConfig(**step_kw))(
+        model, PJ.JointStepConfig(**step_kw))(
         PT.init_state(model, opt), batch)
     assert set(pm) == set(jm)
     for k in jm:
@@ -236,7 +236,7 @@ def test_joint_ema_step(setup):
                             labels=labels)
     ema = prq.ema_init(model.codebooks.detach())
     cfg = PJ.JointStepConfig(pq_loss="label")
-    state, ema2, pm = PJ.make_joint_train_step_ema(model, opt, cfg)(
+    state, ema2, pm = PJ.make_joint_train_step_ema(model, cfg)(
         PT.init_state(model, opt), ema, batch,
         torch.Generator().manual_seed(0))
     assert np.isfinite(float(pm["loss"]))
@@ -246,8 +246,7 @@ def test_joint_ema_step(setup):
     plain = port_joint(params)
     popt = PT.make_optimizer(TrainConfig(**TRAIN), plain, total_steps=4,
                              labels=labels)
-    PJ.make_joint_train_step(plain, popt, cfg)(PT.init_state(plain, popt),
-                                               batch)
+    PJ.make_joint_train_step(plain, cfg)(PT.init_state(plain, popt), batch)
     got, ref = state_dict_to_flax(model), state_dict_to_flax(plain)
     for k in ref:
         if k != "codebooks":

@@ -120,7 +120,7 @@ def test_nci_steps_equal_optax(nci_setup, accumulation, micro_steps):
     cfg = TrainConfig(gradient_accumulation=accumulation, **TRAIN)
     opt = PT.make_optimizer(cfg, model, total_steps=10)
     state = PT.init_state(model, opt)
-    step = PT.make_nci_train_step(model, opt)
+    step = PT.make_nci_train_step(model)
     norms = []
     for b in batches[:micro_steps]:
         state, metrics = step(state, b)
@@ -160,7 +160,7 @@ def test_twin_step_equals_jax():
         {k: jnp.asarray(v) for k, v in batch.items()})
     tm = load_flax_params(pt5.T5Model(pt5.T5Dims(**kw), device="cpu"), fl)
     opt = PT.make_optimizer(TrainConfig(**cfg), tm, total_steps=4)
-    state, metrics = PT.make_twin_train_step(Tower("t5", tm), opt)(
+    state, metrics = PT.make_twin_train_step(Tower("t5", tm))(
         PT.init_state(tm, opt), batch)
     np.testing.assert_allclose(metrics["co_loss"].item(),
                                float(jmetrics["co_loss"]), atol=ATOL)
