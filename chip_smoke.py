@@ -6,13 +6,14 @@ and runs the offline evaluation at full width over an MS MARCO-scale
 corpus.
 
     python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only |
-                                     --phase7-only]
+                                     --phase7-only | --phase8-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
 result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
 builds the kernels and the models and runs phase 6 alone, with no
 result line; ``--phase7-only`` runs phase 6a's corpus build, then
-phase 7, with no result line.
+phase 7, with no result line; ``--phase8-only`` builds the kernels and
+runs phase 8 alone, with no result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -90,7 +91,36 @@ Phases:
      twin-tower step (T5 12 + 12) and one joint step (NCI + tower +
      codebooks, ``pq_loss`` ce, the NCI frozen) then its EMA variant at
      batch 64, 7 negatives, 128 doc tokens, remat on: ms, peak, losses,
-     every group's update non-zero (frozen exactly zero).
+     every group's update non-zero (frozen exactly zero);
+  8. the single-card CLI pipeline, each command in process through
+     ``mevi_tpu_torch.cli.main.main([...])`` with ``--device cuda``,
+     over ``configs/marco_rq4x5.json`` with bf16 compute and synthetic
+     MS MARCO text from the seed (65,536 passages of ~32 Zipf words,
+     16,384 train and 1,024 dev queries of words of their gold passage,
+     in MS MARCO's raw file layouts; a T5-base ``T5Model`` checkpoint
+     in HF names from seeded random tensors): (a) ``prepare --doc_aug``
+     and ``tokenize`` (128 / 32 tokens, ``HashTokenizer``), whether the
+     native library loaded; (b) ``gen-embeddings`` (emb/s, FLOPs and
+     their share of the bf16 peak, the ``--profile`` table), 1,024 rows
+     held against a float32 recompute (per-row relative L2 2e-2); (c)
+     ``build-index`` (RQ 4 x 32, 25 iterations); (d) ``train
+     --train_tsv`` one epoch at batch 512, then ``--resume best
+     --max_epochs 2``, entered at the restored step; (e) ``eval`` of
+     the dev queries at batch 512, 10 beams, ``--bf16``: plain,
+     ``--corpus_int8``, ``--host_stream`` (equal to the device
+     reranker's report), one batch's pool against the plain bucket
+     version, the result tsvs read back; (f) ``train-joint`` (tower and
+     codes and codebooks of (b)-(c), 20 steps at batch 64, 7 negatives,
+     remat) whose validation refits RQ over the 65,536 passages and
+     evaluates 256 dev queries, then ``--resume best``, bit for bit;
+     (g) float32 decoding: ``trie_beam_search`` over ``build-hier`` ids
+     (k 30, c 30) of 16,384 embeddings, 512 queries, 10 beams, every id
+     a trie path to a terminal and its score the teacher-forced one
+     (1e-3); ``brute_force_topk`` over all 32^4 sequences of (d)'s NCI
+     for one query against ``nci_beam_search_incremental``; (h)
+     ``doc2query`` (512 passages x 10 queries of 64 tokens, batch 128),
+     a greedy ``generate`` of 64 passages against the panel's argmax at
+     every step, one ``--repair`` round over 16 broken docs.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
@@ -106,6 +136,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import os.path as osp
 import re
 import shutil
@@ -145,6 +176,18 @@ SYNTH = dict(seed=0, fit_sample=500_000, fit_iters=8, check_rows=65_536,
 TRAIN7 = dict(config="configs/marco_rq4x5.json", train_queries=153_600,
               steps=300, dev_queries=1024, dropout=0.1, bf16_gap=0.02,
               twin_batch=64, co_neg=7, doc_len=128)
+# phase 8: 65,536 passages and 16,384 + 1,024 queries cut from MS
+# MARCO's 8.8M and 502,939 + 6,980, and build-hier on 16,384 rows, for
+# the script's time (at 131,072 / 65,536 / 65,536 phase 8 took 315 s);
+# the models keep their widths
+PIPE8 = dict(config="configs/marco_rq4x5.json", passages=65_536, words=32,
+             vocab_words=30_000, zipf_a=1.1, query_words=6,
+             train_queries=16_384, dev_queries=1_024, doc_len=128, qlen=32,
+             check_rows=1_024, emb_tol=2e-2, rq_iters=25, eval_batch=512,
+             joint_steps=20, joint_batch=64, joint_dev=256, co_neg=7,
+             trie_rows=16_384, trie_queries=512, hier_k=30, hier_c=30,
+             decode_tol=1e-3, brute_block=4096, d2q_passages=512, d2q_n=10,
+             d2q_qlen=64, d2q_batch=128, greedy_rows=64, repair_docs=16)
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
 
@@ -1504,25 +1547,11 @@ def train_phase(cfg, seed, dev, qtower, corpus):
         # Each step is bracketed by CUDA events and its loss kept on the
         # card, read after the run: the command logs at its default
         # interval, so no per-step float() drains the queue.
-        step_ev, step_loss = [], []
-        make_step = T.make_nci_train_step
-
-        def observed_step(*a, **kw):
-            inner = make_step(*a, **kw)
-
-            def step(state, batch, rng=None):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-                state, metrics = inner(state, batch, rng)
-                ev[1].record()
-                step_ev.append(ev)
-                step_loss.append(metrics["loss"])
-                return state, metrics
-            return step
-
+        rec = dict(events=[], losses=[], entry_steps=[])
+        step_ev, step_loss = rec["events"], rec["losses"]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        T.make_nci_train_step = observed_step
+        make_step = observe_steps(T, "make_nci_train_step", rec)
         try:
             state = cli_main([
                 "train", "--config", cfgp, "--queries", osp.join(tmp, "q"),
@@ -1761,6 +1790,669 @@ def train_phase(cfg, seed, dev, qtower, corpus):
     return n_trained
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the single-card CLI pipeline at full width
+# ---------------------------------------------------------------------------
+
+def synth_marco_text(root, P, seed):
+    """MS MARCO's raw layouts from the seed: ``corpus.tsv`` (id, title,
+    ~32 Zipf words), ``train.query.txt`` / ``dev.query.txt`` (id, words
+    of the gold passage) and the qrels; returns the content rows."""
+    rng = np.random.default_rng(seed)
+    n, nw = P["passages"], P["words"]
+    rank = np.arange(1, P["vocab_words"] + 1, dtype=np.float64)
+    p = rank ** -P["zipf_a"]
+    words = np.array([f"w{i}" for i in range(P["vocab_words"])])
+    lens = rng.integers(nw - 8, nw + 9, n)
+    draw = words[rng.choice(len(words), (n, nw + 8), p=p / p.sum())]
+    titles = words[rng.choice(len(words), (n, 3), p=p / p.sum())]
+    content = [" ".join(draw[i, :lens[i]]) for i in range(n)]
+    os.makedirs(root, exist_ok=True)
+    with open(osp.join(root, "corpus.tsv"), "w") as fw:
+        fw.writelines(f"{i}\t{' '.join(titles[i])}\t{content[i]}\n"
+                      for i in range(n))
+    qid = 0
+    for split, nq in (("train", P["train_queries"]),
+                      ("dev", P["dev_queries"])):
+        gold = rng.integers(0, n, nq)
+        pick = rng.integers(0, nw - 8, (nq, P["query_words"]))
+        with open(osp.join(root, f"{split}.query.txt"), "w") as fq, \
+                open(osp.join(root, f"qrels.{split}.tsv"), "w") as fr:
+            for g, cols in zip(gold, pick):
+                fq.write(f"{qid}\t{' '.join(draw[g, cols])}\n")
+                fr.write(f"{qid}\t0\t{g}\t1\n")
+                qid += 1
+    return content
+
+
+@torch.no_grad()
+def hf_t5_init_(model, seed):
+    """Seeded random weights with the distribution of HF
+    ``T5PreTrainedModel._init_weights`` (factor 1): embeddings N(0, 1),
+    q N(0, (d * d_kv)^-1/2), k / v / wi N(0, d^-1/2), o N(0, (h *
+    d_kv)^-1/2), wo N(0, d_ff^-1/2), the bias table N(0, d^-1/2), norms
+    1.  (Lecun-normal q, eight times larger, saturates the unscaled
+    attention of a random 24-layer T5, and bf16 then decorrelates.)"""
+    d = model.dims
+    g = torch.Generator(device=model.shared.weight.device).manual_seed(seed)
+    for n, p in model.named_parameters():
+        if "norm" in n:
+            p.fill_(1.0)
+            continue
+        std = {"shared.weight": 1.0}.get(n)
+        for suffix, v in ((".q.weight", (d.d_model * d.d_kv) ** -0.5),
+                          (".o.weight", (d.num_heads * d.d_kv) ** -0.5),
+                          (".wo.weight", d.d_ff ** -0.5),
+                          (".weight", d.d_model ** -0.5)):
+            if std is None and n.endswith(suffix):
+                std = v
+        p.normal_(0.0, std, generator=g)
+    return model
+
+
+def hf_t5_state_dict(model):
+    """The port's ``T5Model`` state dict under HF ``T5Model`` names (no
+    ``transformers`` here: the names are spelled out)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "shared":
+            out[name] = t
+            continue
+        side = parts[0]
+        if parts[1] == "final_norm":
+            out[f"{side}.final_layer_norm.weight"] = t
+            continue
+        i, sub, rest = parts[2], parts[3], ".".join(parts[4:])
+        ff = 2 if side == "decoder" else 1
+        head = {"self_attn": "layer.0.SelfAttention",
+                "self_norm": "layer.0.layer_norm",
+                "cross_attn": "layer.1.EncDecAttention",
+                "cross_norm": "layer.1.layer_norm",
+                "ff": f"layer.{ff}.DenseReluDense",
+                "ff_norm": f"layer.{ff}.layer_norm"}[sub]
+        out[f"{side}.block.{i}.{head}.{rest}"] = t
+    out["encoder.embed_tokens.weight"] = out["shared.weight"]
+    out["decoder.embed_tokens.weight"] = out["shared.weight"]
+    return out
+
+
+def t5_tower_flops(dims, n, L):
+    """Forward matmul FLOPs of the T5 tower's embedding of ``n`` rows of
+    ``L`` tokens: the encoder, each decoder layer's cross-attention K/V
+    over the encoder states, and the one decoder token."""
+    dm, inner, dff = dims.d_model, dims.num_heads * dims.d_kv, dims.d_ff
+    T = n * L
+    enc = dims.num_layers * (2 * T * dm * inner * 4 + 4 * T * L * inner
+                             + 4 * T * dm * dff)
+    dec = dims.num_decoder_layers * (
+        2 * T * dm * inner * 2 + 2 * n * dm * inner * 6 + 4 * n * L * inner
+        + 4 * n * dm * dff)
+    return enc + dec
+
+
+def quiet(fn, *a):
+    """``fn(*a)`` with its standard output and errors captured; returns
+    (result, stdout, stderr)."""
+    import contextlib
+    import io as _io
+    out, err = _io.StringIO(), _io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = fn(*a)
+    return res, out.getvalue(), err.getvalue()
+
+
+def observe_steps(module, name, record):
+    """Patch ``module.name`` (a step factory) so that each step it makes
+    is bracketed by CUDA events and keeps its loss on the card and the
+    step count it was entered at; returns the original to restore."""
+    make = getattr(module, name)
+
+    def observed(*a, **kw):
+        inner = make(*a, **kw)
+
+        def step(state, batch, rng=None):
+            record["entry_steps"].append(state.step)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, metrics = inner(state, batch, rng)
+            ev[1].record()
+            record["events"].append(ev)
+            record["losses"].append(metrics["loss"])
+            return state, metrics
+        return step
+    setattr(module, name, observed)
+    return make
+
+
+def trie_teacher_scores(model, ids, mask, codes, lengths, lp, chunk=1024):
+    """Teacher-forced score of variable-length ids under the NCI panel
+    (the forward ``score_sequences`` runs per block, for ids of any
+    length): the summed level log-probs, the EOS after the last code,
+    normalized by ``(len + 1) ** lp``."""
+    K, L = model.dims.kary, model.dims.max_output_length
+    out = []
+    for s in range(0, len(codes), chunk):
+        c = codes[s:s + chunk].long()
+        n = lengths[s:s + chunk].long()
+        t = torch.arange(c.shape[1], device=c.device)
+        toks = torch.zeros((len(c), L), dtype=torch.long, device=c.device)
+        toks[:, 1:c.shape[1] + 1] = torch.where(
+            t < n[:, None], c.clamp(min=0) + t * K + 2, 0)
+        compact, _, _, _ = model(ids[s:s + chunk], mask[s:s + chunk], toks)
+        logp = torch.log_softmax(compact.float(), -1)
+        cols = torch.where(t < n[:, None], c.clamp(min=0), 0)
+        lv = torch.gather(logp[:, :c.shape[1], :K], 2, cols[:, :, None])[..., 0]
+        total = (lv * (t < n[:, None])).sum(1) + logp[
+            torch.arange(len(c), device=c.device), n, K]
+        out.append(total / (n.float() + 1) ** lp)
+    return torch.cat(out)
+
+
+def pipeline_phase(cfg, seed, dev):
+    """Phase 8: the single-card CLI pipeline at full width, every
+    command in process through ``mevi_tpu_torch.cli.main.main`` with
+    ``--device cuda``: (a) ``prepare --doc_aug`` and ``tokenize`` of
+    synthetic MS MARCO text, (b) ``gen-embeddings`` with a T5-base
+    checkpoint in HF layout, (c) ``build-index``, (d) ``train`` and its
+    resume, (e) ``eval`` plain, int8 and host-streamed, (f)
+    ``train-joint`` with RQ-refit validation and its resume, (g) the
+    trie and brute-force decoders, (h) ``doc2query`` and its repair.
+    Returns the v3 launches of each eval / validation path."""
+    from mevi_tpu_torch.cli.main import _nci_dims, load_config
+    from mevi_tpu_torch.cli.main import main as cli_main
+    from mevi_tpu_torch.data import io as dio
+    from mevi_tpu_torch.data.prepare import qg_repair
+    from mevi_tpu_torch.decode.beam import nci_beam_search_incremental
+    from mevi_tpu_torch.decode.brute import brute_force_topk
+    from mevi_tpu_torch.decode.generate import _lm_logits, generate
+    from mevi_tpu_torch.decode.trie import trie_beam_search
+    from mevi_tpu_torch.eval import searcher
+    from mevi_tpu_torch.models import convert
+    from mevi_tpu_torch.models.nci import NCIDims, NCIT5
+    from mevi_tpu_torch.models.t5 import T5Dims, T5Model
+    from mevi_tpu_torch.ops.bucket import bucket_scores_v3_plain
+    from mevi_tpu_torch.train import joint as J
+    from mevi_tpu_torch.train import trainer as T
+    from mevi_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                  restore_tree_host)
+    from mevi_tpu_torch.utils import native
+    from mevi_tpu_torch.weights import init_random_
+    P = PIPE8
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    raw, origin = osp.join(tmp, "raw"), osp.join(tmp, "origin")
+    j = lambda *a: osp.join(tmp, *a)          # noqa: E731
+    launches = {}
+    try:
+        # ---- config: marco_rq4x5 with bf16 compute ----------------------
+        with open(P["config"]) as fr:
+            rawcfg = json.load(fr)
+        rawcfg["model"]["dtype"] = "bfloat16"
+        rawcfg["encoder"]["dtype"] = "bfloat16"
+        rawcfg["ckpt_dir"] = j("ckpts")
+        rawcfg["train"]["eval_batch_size"] = P["joint_dev"]
+        cfgp = j("config.json")
+        with open(cfgp, "w") as fw:
+            json.dump(rawcfg, fw)
+        mcfg = load_config(cfgp)
+
+        # ---- (a) prepare --doc_aug, tokenize ----------------------------
+        secs = {}
+        t0 = time.perf_counter()
+        content = synth_marco_text(raw, P, seed + 91)
+        secs["write_text_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_main(["prepare", "--raw_dir", raw, "--origin_dir", origin,
+                  "--doc_aug"])
+        secs["prepare_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_main(["tokenize", "--kind", "corpus", "--input",
+                  osp.join(raw, "corpus.tsv"), "--output", j("docs"),
+                  "--length", str(P["doc_len"]), "--allow_hash_tokenizer"])
+        secs["tokenize_corpus_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_main(["tokenize", "--kind", "queries", "--input",
+                  osp.join(origin, "train_mevi.tsv"), "--output", j("q"),
+                  "--length", str(P["qlen"]), "--allow_hash_tokenizer"])
+        secs["tokenize_queries_s"] = time.perf_counter() - t0
+        with open(osp.join(origin, "doc_aug.tsv")) as fr:
+            n_aug = sum(1 for _ in fr)
+        emit(phase="8a_prepare_tokenize", passages=P["passages"],
+             train_queries=P["train_queries"], dev_queries=P["dev_queries"],
+             doc_aug_rows=n_aug,
+             native_library_loaded=native.ensure_built() is not None,
+             seconds=secs)
+
+        # ---- (b) gen-embeddings ------------------------------------------
+        tdims = T5Dims(vocab_size=cfg["vocab"], d_model=cfg["d"],
+                       d_kv=cfg["d_kv"], d_ff=cfg["d_ff"],
+                       num_heads=cfg["heads"], num_layers=cfg["enc_layers"],
+                       num_decoder_layers=cfg["qdec_layers"],
+                       dropout_rate=0.0)
+        tower32 = hf_t5_init_(T5Model(tdims, device=dev), seed + 93)
+        hf_sd = hf_t5_state_dict(tower32)
+        back = convert.convert_t5_model(
+            {k: v.cpu() for k, v in hf_sd.items()}, tdims.num_layers,
+            tdims.num_decoder_layers)
+        if set(back) != set(tower32.state_dict()) or not all(
+                torch.equal(v, tower32.state_dict()[k].cpu())
+                for k, v in back.items()):
+            raise AssertionError("8b: HF names do not convert back")
+        torch.save({k: v.cpu() for k, v in hf_sd.items()}, j("t5.pt"))
+        del hf_sd, back
+        args_b = ["gen-embeddings", "--config", cfgp, "--checkpoint",
+                  j("t5.pt"), "--documents", j("docs"), "--doc_length",
+                  str(P["doc_len"]), "--output", j("docemb.bin"),
+                  "--device", str(dev)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet(cli_main, args_b)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        _, _, prof = quiet(cli_main, args_b + ["--profile"])
+        emb = dio.open_embedding_memmap(j("docemb.bin"), cfg["d"])
+        flops = t5_tower_flops(tdims, P["passages"], P["doc_len"])
+        tok, msk = dio.open_token_memmaps(j("docs"), P["doc_len"])
+        n_chk = P["check_rows"]
+        with torch.inference_mode():
+            ref = torch.cat([tower32.first_token_rep(
+                torch.from_numpy(np.asarray(tok[s:e], np.int32)).to(dev),
+                torch.from_numpy(np.asarray(msk[s:e], np.int32)).to(dev))
+                for s, e in ((s, min(s + 256, n_chk))
+                             for s in range(0, n_chk, 256))]).cpu().numpy()
+        got = np.asarray(emb[:n_chk])
+        rel = np.linalg.norm(got - ref, axis=1) / np.linalg.norm(ref, axis=1)
+        if not (np.isfinite(emb).all() and emb.shape == (P["passages"],
+                                                          cfg["d"])):
+            raise AssertionError("8b: embeddings not finite / misshapen")
+        if not rel.max() <= P["emb_tol"]:
+            raise AssertionError(f"8b: bf16 embeddings {rel.max():.4f} off "
+                                 f"the float32 recompute (> {P['emb_tol']})")
+        emit(phase="8b_gen_embeddings", rows=P["passages"],
+             doc_len=P["doc_len"], command_s=gen_s,
+             embeddings_per_s=P["passages"] / gen_s,
+             model_tflop=flops / 1e12,
+             bf16_dense_peak_share=flops / gen_s / 989e12,
+             profile=[ln.strip() for ln in prof.splitlines()
+                      if ln.startswith("bs=")],
+             check_rows=n_chk, max_row_rel_l2_err=float(rel.max()),
+             mean_row_rel_l2_err=float(rel.mean()),
+             max_abs_err=float(np.abs(got - ref).max()), tol=P["emb_tol"],
+             card=card_line())
+
+        # ---- (c) build-index ---------------------------------------------
+        t0 = time.perf_counter()
+        _, hist, _ = quiet(cli_main, [
+            "build-index", "--config", cfgp, "--embeddings", j("docemb.bin"),
+            "--output_dir", j("index"), "--iters", str(P["rq_iters"]),
+            "--device", str(dev)])
+        codes = np.load(j("index", "rq_codes.npy"))
+        emit(phase="8c_build_index", seconds=time.perf_counter() - t0,
+             codes=list(codes.shape), histogram=json.loads(hist))
+
+        # ---- (d) train, then --resume ------------------------------------
+        rec = dict(events=[], losses=[], entry_steps=[])
+        args_d = ["train", "--config", cfgp, "--queries", j("q"),
+                  "--query_length", str(P["qlen"]),
+                  "--codes", j("index", "rq_codes.npy"),
+                  "--train_tsv", osp.join(origin, "train_mevi.tsv"),
+                  "--device", str(dev), "--log_dir", j("logs")]
+        make = observe_steps(T, "make_nci_train_step", rec)
+        try:
+            t0 = time.perf_counter()
+            st1, out1, _ = quiet(cli_main, args_d + ["--max_epochs", "1"])
+            t1 = time.perf_counter()
+            n1 = len(rec["events"])
+            st2, out2, _ = quiet(cli_main, args_d + ["--max_epochs", "2",
+                                                     "--resume", "best"])
+            t2 = time.perf_counter()
+        finally:
+            T.make_nci_train_step = make
+        per_epoch = P["train_queries"] // mcfg.train.train_batch_size
+        if not (n1 == per_epoch and st1.step == per_epoch
+                and "resumed from epoch 1" in out2
+                and rec["entry_steps"][n1] == per_epoch
+                and st2.step == 2 * per_epoch):
+            raise AssertionError(f"8d: steps {n1}/{st1.step}, resume "
+                                 f"entered at {rec['entry_steps'][n1]}, "
+                                 f"ended at {st2.step}: {out2!r}")
+        step_ms = np.array([a.elapsed_time(b) for a, b in rec["events"]])
+        losses = torch.stack(rec["losses"]).float().cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError("8d: a non-finite training loss")
+        ck = CheckpointManager.from_dir(j("ckpts", "nci"))
+        best = osp.join(ck.directory, ck.best_tag())
+        emit(phase="8d_train_resume", steps=[n1, len(step_ms) - n1],
+             batch=mcfg.train.train_batch_size,
+             step_ms_median=float(np.median(step_ms)),
+             step_ms_p10_p90=[float(np.percentile(step_ms, 10)),
+                              float(np.percentile(step_ms, 90))],
+             epoch_command_s=[t1 - t0, t2 - t1],
+             resumed_entry_step=rec["entry_steps"][n1],
+             loss_first_last=[float(losses[0]), float(losses[-1])],
+             epoch_lines=[ln for ln in (out1 + out2).splitlines()
+                          if ln.startswith(("epoch", "resumed"))],
+             best_tag=ck.best_tag())
+        del st1, st2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (e) eval: bf16, int8, host-streamed -------------------------
+        args_e = ["eval", "--config", cfgp, "--nci_ckpt", best,
+                  "--tower_ckpt", j("t5.pt"), "--embeddings", j("docemb.bin"),
+                  "--codes", j("index", "rq_codes.npy"),
+                  "--dev_tsv", osp.join(origin, "dev_mevi_dedup.tsv"),
+                  "--batch_size", str(P["eval_batch"]),
+                  "--num_return_sequences", str(cfg["beams"]), "--bf16",
+                  "--allow_hash_tokenizer", "--device", str(dev)]
+        runs = {}
+        for tag, extra in (("8_eval_cli", []),
+                           ("8_eval_cli_int8", ["--corpus_int8"]),
+                           ("8_eval_host_stream", ["--host_stream"])):
+            reset_counts()
+            t0 = time.perf_counter()
+            res, _, _ = quiet(cli_main, args_e + extra + [
+                "--save_path", j(f"res_{tag}.tsv")])
+            cmd_s = time.perf_counter() - t0
+            launches[tag] = read_counts()["v3"]
+            ev_s = sum(t["coarse_ms"] + t["fine_ms"]
+                       for t in res["evaluator"].timings) / 1e3
+            rep = res["report"]
+            runs[tag] = res
+            n_dev = len(res["gts"])
+            emit(phase=tag, queries=n_dev, command_s=cmd_s,
+                 evaluate_q_per_s=n_dev / ev_s,
+                 coarse_ms=[t["coarse_ms"] for t in res["evaluator"].timings],
+                 fine_ms=[t["fine_ms"] for t in res["evaluator"].timings],
+                 v3_launches=launches[tag],
+                 coarse={k: {n: rep["coarse"][k].get(n) for n in (1, 10)}
+                         for k in ("recall", "mrr")},
+                 fine={"recall": {n: rep["fine"]["recall"][n]
+                                  for n in (1, 10, 100)},
+                       "mrr10": rep["fine"]["mrr"][10]},
+                 ndoc_per_query=rep["ndoc_per_query"])
+            for part in ("coarse", "fine", "hn"):
+                path = j(f"res_{tag}_{part}.tsv")
+                with open(path) as fr:
+                    n_rows = sum(1 for _ in fr)
+                if n_rows != n_dev:
+                    raise AssertionError(f"{tag}: {path} has {n_rows} rows")
+            preds, _, _ = dio.parse_result_tsv(
+                j(f"res_{tag}_fine.tsv"), {"query": 0, "pred": 2})
+            if not preds or not all(all(isinstance(d, int) for d in v)
+                                    for v in preds.values()):
+                raise AssertionError(f"{tag}: the fine tsv reads back wrong")
+        plain, hs = runs["8_eval_cli"]["report"], runs["8_eval_host_stream"][
+            "report"]
+        if hs["coarse"] != plain["coarse"] or \
+                hs["fine"]["recall"] != plain["fine"]["recall"]:
+            raise AssertionError("8e: host streaming differs from the "
+                                 "device reranker")
+        if launches["8_eval_cli"] == 0 or launches["8_eval_cli_int8"] == 0:
+            raise AssertionError(f"8e: v3 never launched: {launches}")
+        # one batch's pool against the plain bucket version
+        res = runs["8_eval_cli"]
+        ev = res["evaluator"]
+        b0 = res["outputs"].results[0]
+        B = len(b0.queries)
+        with torch.inference_mode():
+            qemb = ev.query_rep_fn(
+                torch.from_numpy(res["query_ids"][:B]).to(dev),
+                torch.from_numpy(res["query_mask"][:B]).to(dev))
+        kern = ev._rerank(qemb, b0.beam_codes)
+        real = searcher.bucket_scores_v3
+        searcher.bucket_scores_v3 = (
+            lambda semb, s, e, q, cap, align, device=None:
+            bucket_scores_v3_plain(semb, s, e, q, cap, align))
+        try:
+            plain_pool = ev._rerank(qemb, b0.beam_codes)
+        finally:
+            searcher.bucket_scores_v3 = real
+        err, n_sep = compare_pools(
+            "8e_plain_bucket", (torch.from_numpy(kern[0]),
+                                torch.from_numpy(kern[1])),
+            (torch.from_numpy(plain_pool[0]),
+             torch.from_numpy(plain_pool[1])))
+        emit(phase="8e_checks", host_stream_equal=True,
+             plain_pool_max_abs_err=err, ids_compared=n_sep,
+             launches_by_path=dict(launches))
+        dev_q, dev_m = res["query_ids"], res["query_mask"]
+        del runs, res, ev
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (f) train-joint with RQ-refit validation --------------------
+        rows = dio.read_query_docids_tsv(osp.join(origin, "train_mevi.tsv"))
+        n_j = P["joint_steps"] * P["joint_batch"]
+        dio.write_query_docids_tsv(j("joint_train.tsv"), rows[:n_j])
+        dio.write_query_docids_tsv(
+            j("joint_dev.tsv"), dio.read_query_docids_tsv(
+                osp.join(origin, "dev_mevi_dedup.tsv"))[:P["joint_dev"]])
+        rawcfg["train"].update(train_batch_size=P["joint_batch"],
+                               co_neg_num=P["co_neg"])
+        jcfgp = j("config_joint.json")
+        with open(jcfgp, "w") as fw:
+            json.dump(rawcfg, fw)
+        args_f = ["train-joint", "--config", jcfgp, "--queries", j("q"),
+                  "--query_length", str(P["qlen"]),
+                  "--train_tsv", j("joint_train.tsv"),
+                  "--documents", j("docs"), "--doc_length", str(P["doc_len"]),
+                  "--codes", j("index", "rq_codes.npy"),
+                  "--codebooks", j("index", "rq_codebooks.npy"),
+                  "--tower_ckpt", j("t5.pt"), "--dev_tsv", j("joint_dev.tsv"),
+                  "--max_epochs", "1", "--val_every", "1", "--remat",
+                  "--allow_hash_tokenizer", "--device", str(dev)]
+        jrec = dict(events=[], losses=[], entry_steps=[])
+        jmake = observe_steps(J, "make_joint_train_step", jrec)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            tl, out_f, _ = quiet(cli_main, args_f)
+            t1 = time.perf_counter()
+        finally:
+            J.make_joint_train_step = jmake
+        launches["8_train_joint_validate"] = read_counts()["v3"]
+        jms = np.array([a.elapsed_time(b) for a, b in jrec["events"]])
+        jl = torch.stack(jrec["losses"]).float().cpu().numpy()
+        if len(jms) != P["joint_steps"] or not np.isfinite(jl).all():
+            raise AssertionError(f"8f: {len(jms)} joint steps, losses {jl}")
+        if launches["8_train_joint_validate"] == 0 or not tl.last_validation:
+            raise AssertionError("8f: the validation never ran v3")
+        peak_f = torch.cuda.max_memory_allocated() / 1e9
+        tl2, out_r, _ = quiet(cli_main, args_f + ["--resume", "best"])
+        if "resumed from epoch 1" not in out_r:
+            raise AssertionError(f"8f: resume said {out_r!r}")
+        n_eq = trees_equal("8f", tl.state.model.state_dict(),
+                           tl2.state.model.state_dict()) + trees_equal(
+            "8f", tl.state.optimizer.state_dict(),
+            tl2.state.optimizer.state_dict())
+        emit(phase="8f_train_joint", steps=len(jms),
+             batch=P["joint_batch"], co_neg=P["co_neg"], remat=True,
+             step_ms_median=float(np.median(jms)),
+             step_ms_min_max=[float(jms.min()), float(jms.max())],
+             loss_first_last=[float(jl[0]), float(jl[-1])],
+             command_s=t1 - t0, refit=tl.refit_stats,
+             validation=tl.last_validation,
+             v3_launches=launches["8_train_joint_validate"],
+             resume_tensors_bitwise_equal=n_eq, peak_device_gb=peak_f)
+        del tl, tl2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (g) decoding in float32: trie beam, brute force -------------
+        sub = np.asarray(emb[:P["trie_rows"]])
+        dio.write_embedding_memmap(j("sub.bin"), sub)
+        t0 = time.perf_counter()
+        _, hier, _ = quiet(cli_main, [
+            "build-hier", "--config", cfgp, "--embeddings", j("sub.bin"),
+            "--output_dir", j("hier"), "--k", str(P["hier_k"]),
+            "--c", str(P["hier_c"]), "--device", str(dev)])
+        hier_s = time.perf_counter() - t0
+        trie = np.load(j("hier", "hier_trie.npz"))
+        max_len = int(np.load(j("hier", "hier_lengths.npy")).max())
+        kary_t = max(P["hier_k"], P["hier_c"])
+        t5f = dataclasses.replace(tdims, num_decoder_layers=cfg["dec_layers"])
+        nci_t = init_random_(NCIT5(NCIDims(
+            t5=t5f, kary=kary_t, max_output_length=max_len + 2),
+            device=dev), seed + 95)
+        nq_t = P["trie_queries"]
+        ids_t = torch.from_numpy(dev_q[:nq_t]).to(dev)
+        mask_t = torch.from_numpy(dev_m[:nq_t]).to(dev)
+        child = torch.from_numpy(trie["child"]).to(dev)
+        term = torch.from_numpy(trie["terminal"]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tc, tlen, tsc = trie_beam_search(nci_t, ids_t, mask_t, child, term,
+                                         num_beams=cfg["beams"],
+                                         max_steps=max_len + 1, device=dev)
+        torch.cuda.synchronize()
+        trie_s = time.perf_counter() - t0
+        live = tsc > -1e8
+        ch, tm = trie["child"], trie["terminal"]
+        for c_row, n_row in zip(tc[live].cpu().numpy(),
+                                tlen[live].cpu().numpy()):
+            node = 0
+            for c in c_row[:n_row]:
+                node = ch[node, c]
+                if node < 0:
+                    raise AssertionError("8g: a returned id leaves the trie")
+            if not tm[node] or (c_row[n_row:] != -1).any():
+                raise AssertionError("8g: a returned id is not a document")
+        nb = cfg["beams"]
+        with torch.inference_mode():
+            ref_t = trie_teacher_scores(
+                nci_t, ids_t.repeat_interleave(nb, 0),
+                mask_t.repeat_interleave(nb, 0), tc.reshape(nq_t * nb, -1),
+                tlen.reshape(-1), cfg["length_penalty"]).reshape(nq_t, nb)
+        trie_err = float((ref_t - tsc)[live].abs().max())
+        if not trie_err <= P["decode_tol"]:
+            raise AssertionError(f"8g: trie scores {trie_err} off the "
+                                 "teacher-forced scores")
+        del nci_t
+        # brute force over all 32^4 sequences of the trained NCI
+        nci_b = NCIT5(_nci_dims(mcfg), device=dev)
+        nci_b.load_state_dict(restore_tree_host(best)["model"])
+        q1 = ids_t[:1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bc, bs = brute_force_topk(nci_b, q1, mask_t[:1], k=cfg["beams"],
+                                  length_penalty=cfg["length_penalty"],
+                                  batch=P["brute_block"], device=dev)
+        torch.cuda.synchronize()
+        brute_s = time.perf_counter() - t0
+        ic, isc, _ = nci_beam_search_incremental(
+            nci_b, q1, mask_t[:1], cfg["beams"], cfg["length_penalty"])
+        ic, isc = ic.cpu().numpy()[0], isc.cpu().numpy()[0]
+        if not bs[0, 0] >= isc[0] - P["decode_tol"]:
+            raise AssertionError(f"8g: brute top-1 {bs[0, 0]} below the "
+                                 f"beam's {isc[0]}")
+        agree_n, agree_err = 0, 0.0
+        brute = {tuple(c): v for c, v in zip(map(tuple, bc[0]), bs[0])}
+        for c, v in zip(map(tuple, ic), isc):
+            if c in brute:
+                agree_n += 1
+                agree_err = max(agree_err, abs(float(brute[c]) - float(v)))
+        if agree_err > P["decode_tol"]:
+            raise AssertionError(f"8g: equal codes score {agree_err} apart")
+        emit(phase="8g_decoding", build_hier_s=hier_s,
+             hier=json.loads(hier), trie_queries=nq_t, beams=nb,
+             trie_kary=kary_t, trie_max_steps=max_len + 1,
+             trie_s=trie_s, trie_live_ids=int(live.sum()),
+             trie_max_score_err=trie_err,
+             brute_sequences=int(cfg["kary"] ** cfg["levels"]),
+             brute_s=brute_s, brute_block=P["brute_block"],
+             brute_top1=float(bs[0, 0]),
+             beam_top1=float(isc[0]), codes_in_both_top10=agree_n,
+             max_err_where_codes_agree=agree_err, tol=P["decode_tol"])
+        del nci_b
+
+        # ---- (h) doc2query, greedy check, repair ---------------------------
+        with open(osp.join(raw, "corpus.tsv")) as fr, \
+                open(j("corpus_d2q.tsv"), "w") as fw:
+            for _, line in zip(range(P["d2q_passages"]), fr):
+                fw.write(line)
+        args_h = ["doc2query", "--checkpoint", j("t5.pt"),
+                  "--corpus", j("corpus_d2q.tsv"),
+                  "--n_gen_query", str(P["d2q_n"]),
+                  "--query_max_len", str(P["d2q_qlen"]),
+                  "--doc_max_len", str(P["doc_len"]),
+                  "--batch", str(P["d2q_batch"]), "--seed", str(seed),
+                  "--num_layers", str(tdims.num_layers),
+                  "--d_model", str(tdims.d_model), "--d_kv", str(tdims.d_kv),
+                  "--d_ff", str(tdims.d_ff),
+                  "--num_heads", str(tdims.num_heads),
+                  "--allow_hash_tokenizer", "--device", str(dev)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows_h, _, _ = quiet(cli_main, args_h + ["--output", j("qg.tsv")])
+        torch.cuda.synchronize()
+        d2q_s = time.perf_counter() - t0
+        if len(rows_h) != P["d2q_passages"] * P["d2q_n"]:
+            raise AssertionError(f"8h: {len(rows_h)} generated rows")
+        # greedy: each emitted token is the argmax of the full decoder
+        # panel re-run over the generated prefix (float32)
+        from mevi_tpu_torch.data.tokenize import HashTokenizer
+        enc = HashTokenizer()([content[i] for i in range(P["greedy_rows"])],
+                              max_length=P["doc_len"])
+        gi = torch.from_numpy(enc["input_ids"]).to(dev)
+        gm = torch.from_numpy(enc["attention_mask"]).to(dev)
+        with torch.inference_mode():
+            out_g = generate(tower32, gi, gm, max_length=P["d2q_qlen"],
+                             do_sample=False, device=dev)
+            prefix = torch.cat([torch.zeros_like(out_g[:, :1]),
+                                out_g[:, :-1]], 1)
+            h = tower32.decode(prefix, tower32.encode(gi, gm), gm)
+            arg = _lm_logits(tower32, h).argmax(-1)
+        done = (torch.cumsum((out_g == 1).int(), 1) - (out_g == 1).int()) > 0
+        mism = int(((arg != out_g) & ~done).sum())
+        if mism:
+            raise AssertionError(f"8h: {mism} greedy tokens are not the "
+                                 "panel's argmax")
+        # one repair round over a copy with blanked and duplicated rows
+        qg = [ln.rstrip("\n").split("\t") for ln in open(j("qg.tsv"))]
+        broken = P["repair_docs"]
+        for i in range(broken):
+            qg[i * P["d2q_n"]][0] = " "
+            qg[i * P["d2q_n"] + 1][0] = qg[i * P["d2q_n"] + 2][0]
+        with open(j("qg_broken.tsv"), "w") as fw:
+            fw.writelines(f"{q}\t{d}\n" for q, d in qg)
+        # the docs the repair must regenerate: the broken ones and any
+        # whose sampled queries came out empty or repeated
+        _, need = qg_repair([(q, int(d)) for q, d in qg], P["d2q_n"])
+        t0 = time.perf_counter()
+        fixed, out_rep, err_rep = quiet(cli_main, args_h + [
+            "--output", j("qg_fixed.tsv"), "--repair", j("qg_broken.tsv"),
+            "--repair_rounds", "1"])
+        rep_s = time.perf_counter() - t0
+        per_doc = {}
+        for q, d in fixed:
+            per_doc.setdefault(int(d), []).append(q)
+        short = sum(len(v) < P["d2q_n"] for v in per_doc.values())
+        if f"repair round 0: {len(need)} docs need" not in err_rep or \
+                short or len(need) < broken:
+            raise AssertionError(f"8h: repair said {err_rep!r} {out_rep!r}, "
+                                 f"{short} docs short")
+        n_tok = P["d2q_passages"] * P["d2q_n"] * P["d2q_qlen"]
+        emit(phase="8h_doc2query", passages=P["d2q_passages"],
+             per_passage=P["d2q_n"], query_max_len=P["d2q_qlen"],
+             batch=P["d2q_batch"], command_s=d2q_s,
+             passages_per_s=P["d2q_passages"] / d2q_s,
+             tokens_per_s=n_tok / d2q_s, greedy_rows=P["greedy_rows"],
+             greedy_argmax_mismatches=mism, repair_docs=broken,
+             repair_regenerated_docs=len(need),
+             repair_s=rep_s, repaired_rows=len(fixed))
+        del tower32
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="8_done", seconds=time.perf_counter() - t_phase,
+         launches_by_path=launches)
+    return launches
+
+
 def trees_equal(tag, a, b):
     """Bitwise equality of two (nested) state dicts; returns the number
     of tensors compared."""
@@ -1917,7 +2609,8 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     return p1, p1_i8, paths, int8_paths, n_eval, (qtower, nci)
 
 
-def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False):
+def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
+        phase8_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -1934,6 +2627,12 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False):
     if phase1_only:
         serve_phases(cfg, seed, dev, phase1_only=True)
         emit(total_s=time.perf_counter() - t_start)
+        print(card_line(), flush=True)
+        return 0
+    if phase8_only:
+        out = pipeline_phase(cfg, seed, dev)
+        emit(total_s=time.perf_counter() - t_start,
+             pipeline_v3_launches=out)
         print(card_line(), flush=True)
         return 0
     if phase6_only or phase7_only:
@@ -1961,6 +2660,12 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False):
     gc.collect()
     torch.cuda.empty_cache()
     n_trained = train_phase(cfg, seed, dev, models[0], corpus)
+    # phase 8 starts from an empty card: phase 6's corpus and the
+    # phase-2 models go
+    del corpus, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_pipe = pipeline_phase(cfg, seed, dev)
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -1976,11 +2681,13 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False):
         if "bound_ms_valid_rows" in r:
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
         if mode == "v3":
-            entry["launches"] += n_build + n_synth + n_trained
+            entry["launches"] += n_build + n_synth + n_trained + sum(
+                n_pipe.values())
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build,
                                          "synth_corpus_serve": n_synth,
-                                         "7_trained_serve": n_trained}
+                                         "7_trained_serve": n_trained,
+                                         **n_pipe}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
@@ -2010,13 +2717,16 @@ def main(argv=None):
     ap.add_argument("--phase7-only", action="store_true",
                     help="build the kernels and the models, run phase 6a's "
                          "corpus build, then phase 7, and stop")
+    ap.add_argument("--phase8-only", action="store_true",
+                    help="build the kernels, run phase 8 (the CLI "
+                         "pipeline) and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     return run(FULL, args.seed, args.phase1_only, args.phase6_only,
-               args.phase7_only)
+               args.phase7_only, args.phase8_only)
 
 
 if __name__ == "__main__":

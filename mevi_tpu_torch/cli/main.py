@@ -1,19 +1,29 @@
-"""Command line of the port (``mevi_tpu.cli.main``'s index-build,
-search, NCI-training and offline-metric subcommands; the others come
-with the next training PR and slice E):
+"""Command line of the port: the twelve subcommands of
+``mevi_tpu.cli.main`` over one JSON config:
 
+  prepare        build train/dev/doc-aug tsvs           (prepare_origin.py)
+  tokenize       corpus/query -> memmaps      (prepare_passage_tokenized)
+  gen-embeddings corpus embedding job                    (generate.py, C13)
   build-index    RQ codebooks + CSR fine index  (marco_generate_*_rq.sh)
   build-hier     hierarchical k-means ids, prefix clusters, trie tables
   search         exact MIPS top-k over embeddings, or an ADC scan over
                  RQ codes                              (faiss_search.py)
-  train          NCI seq2seq training              (marco_train_nci_rq.sh)
-  evaluate       Recall/MRR of a ranks tsv against a gt tsv
+  evaluate       Recall/MRR of a ranks tsv against a gt tsv (evaluate.py)
   ensemble       ANCE + MEVI coarse/fine fusion grid  (ensemble_marco.py)
+  doc2query      sampled pseudo-queries per passage, --repair loop
+                                                   (doc2query.py, QG)
+  train          NCI seq2seq training              (marco_train_nci_rq.sh)
+  train-joint    joint NCI + codebook + twin training with RQ-refit
+                 validation                     (main.py --codebook 1)
+  eval           coarse/fine evaluation             (marco_eval_nci_rq.sh)
 
 Every command takes the JAX package's flags and writes its output
 files and lines.  The device commands also take ``--config
-config.json`` (defaults when absent) and ``--device`` (default
-``cuda``); ``evaluate`` and ``ensemble`` run on the host.  Run
+config.json`` (defaults when absent; not ``doc2query``, whose widths are
+flags) and ``--device`` (default ``cuda``); ``prepare``, ``tokenize``,
+``evaluate`` and ``ensemble`` run on the host.  Checkpoints of the
+port's own runs are ``CheckpointManager`` tag directories; HF and
+reference torch checkpoints go through ``models.convert``.  Run
 ``python -m mevi_tpu_torch.cli.main <cmd> --help``.
 """
 
@@ -44,6 +54,135 @@ def load_config(path) -> MEVIConfig:
 # --------------------------------------------------------------------------
 # commands
 # --------------------------------------------------------------------------
+
+def _corpus_rows(path):
+    """(did, title, content) rows of a corpus tsv."""
+    with open(path, encoding="utf-8") as fr:
+        for line in fr:
+            did, title, content = (line.rstrip("\n").split("\t")
+                                   + ["", ""])[:3]
+            yield did, title, content
+
+
+def cmd_prepare(args):
+    """MS MARCO raw files -> train_mevi.tsv / dev_mevi_dedup.tsv (and
+    doc_aug.tsv with ``--doc_aug``), host only."""
+    import csv
+    from ..data import io, prepare as P
+    os.makedirs(args.origin_dir, exist_ok=True)
+    queries = P.read_id_text_tsv(osp.join(args.raw_dir, "train.query.txt"))
+    with open(osp.join(args.raw_dir, "qrels.train.tsv")) as fr:
+        rows = list(csv.reader(fr, delimiter="\t"))
+    pairs = P.build_train_pairs(queries, rows)
+    io.write_query_docids_tsv(osp.join(args.origin_dir, "train_mevi.tsv"),
+                              [(q, [d]) for q, d in pairs])
+    dev_queries = P.read_id_text_tsv(osp.join(args.raw_dir, "dev.query.txt"))
+    with open(osp.join(args.raw_dir, "qrels.dev.tsv")) as fr:
+        rows = list(csv.reader(fr, delimiter="\t"))
+    io.write_query_docids_tsv(
+        osp.join(args.origin_dir, "dev_mevi_dedup.tsv"),
+        P.build_dev_dedup(dev_queries, rows))
+    print("wrote train_mevi.tsv / dev_mevi_dedup.tsv")
+    if args.doc_aug:
+        spans = P.doc_aug_spans(
+            [(int(d), t, c) for d, t, c in
+             _corpus_rows(osp.join(args.raw_dir, "corpus.tsv"))])
+        io.write_query_docids_tsv(osp.join(args.origin_dir, "doc_aug.tsv"),
+                                  [(q, [d]) for q, d in spans])
+        print("wrote doc_aug.tsv")
+
+
+def cmd_tokenize(args):
+    """Corpus tsv or query tsv -> token + mask memmaps, host only."""
+    from ..data import io as dio
+    from ..data.tokenize import (get_tokenizer, tokenize_passages,
+                                 tokenize_queries)
+    tok = get_tokenizer(args.style,
+                        allow_hash_fallback=args.allow_hash_tokenizer)
+    if args.kind == "corpus":
+        rows = [(t, c) for _, t, c in _corpus_rows(args.input)]
+        tokens, masks = tokenize_passages(rows, tok, args.style,
+                                          args.length)
+        dio.write_token_memmaps(args.output, tokens, masks)
+    else:
+        rows = dio.read_query_docids_tsv(args.input)
+        ids, mask = tokenize_queries([q for q, _ in rows], tok, args.length)
+        dio.write_token_memmaps(args.output, ids.astype(np.int64),
+                                mask.astype(np.int64))
+    print(f"tokenized {args.kind}: {args.output}")
+
+
+def _time_ms(fn, dev, reps: int = 5) -> float:
+    """Mean ms of ``reps`` calls after one warm-up: CUDA events on the
+    card, the host clock on the CPU."""
+    fn()
+    if dev.type == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _load_tower(cfg, path, side, dev):
+    """The twin tower of ``cfg.encoder`` with a torch checkpoint's weights
+    (an AR2 / DPR dict gives its ``side``: 'passage' or 'query'), and its
+    representation function under the tower's compute dtype."""
+    from ..models import convert
+    from ..models.twin_tower import tower_from_config
+    from ..train.trainer import compute_autocast
+    sd = convert.load_torch_state_dict(path)
+    if any(k.startswith(("ctx_model.", "question_model.")) for k in sd):
+        sd = convert.split_ar2_checkpoint(sd)[side]
+    tower = tower_from_config(cfg.encoder, device=dev)
+    tower.module.load_state_dict(convert.convert_tower(
+        sd, cfg.encoder.family, cfg.encoder.num_layers))
+    dtype = tower.module.dims.dtype
+
+    def rep_fn(ids, mask):
+        with torch.inference_mode(), compute_autocast(dev, dtype):
+            return tower.rep(ids, mask).float()
+    return tower, rep_fn
+
+
+def cmd_gen_embeddings(args):
+    """Corpus token memmaps -> the float32 embedding memmap, through the
+    T5 or BERT tower of a torch checkpoint (the ctx side of an AR2 one).
+    ``--profile``: the tower's latency at batch 1-256 instead."""
+    from .. import resolve_device
+    from ..data import io as dio
+    from ..index.build import embed_corpus
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    _, rep_fn = _load_tower(cfg, args.checkpoint, "passage", dev)
+    tokens, masks = dio.open_token_memmaps(args.documents, args.doc_length)
+    if args.profile:
+        # encoder latency across batch sizes (profile_generate_query,
+        # MEVI/generate.py:247-280)
+        for bs in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            i = torch.from_numpy(np.asarray(tokens[:1], np.int32)
+                                 .repeat(bs, 0)).to(dev)
+            m = torch.from_numpy(np.asarray(masks[:1], np.int32)
+                                 .repeat(bs, 0)).to(dev)
+            ms = _time_ms(lambda: rep_fn(i, m), dev)
+            print(f"bs={bs}: {ms:.2f} ms/batch {bs / (ms * 1e-3):.1f} "
+                  "emb/s", file=sys.stderr)
+        return
+    emb = embed_corpus(rep_fn, tokens, masks,
+                       batch_size=cfg.train.encode_batch_size,
+                       progress=lambda d, n: print(f"\r{d}/{n}", end="",
+                                                   file=sys.stderr),
+                       device=dev)
+    dio.write_embedding_memmap(args.output, emb)
+    print(f"\nwrote {args.output}: {emb.shape}")
+
 
 def cmd_build_index(args):
     from ..data import io as dio
@@ -299,6 +438,364 @@ def cmd_train(args):
     return state
 
 
+def _dev_inputs(dev_tsv, cfg, query_length, allow_hash):
+    """Dev tsv -> (queries, token ids, mask, gt doc ids) tokenized for the
+    config's tower family."""
+    from ..data import io as dio
+    from ..data.tokenize import get_tokenizer, tokenize_queries
+    rows = dio.read_query_docids_tsv(dev_tsv)
+    tok = get_tokenizer("ance" if cfg.encoder.family == "t5" else "ar2",
+                        allow_hash_fallback=bool(allow_hash))
+    ids, mask = tokenize_queries([q for q, _ in rows], tok, query_length)
+    return [q for q, _ in rows], ids, mask, [ids_ for _, ids_ in rows]
+
+
+def cmd_train_joint(args):
+    """Joint NCI + codebook + twin training (the reference's
+    ``--codebook 1`` mode, ``main.py:36-174`` + ``main_models.py:
+    2838-2867``): runtime RQ labels from the live tower, PQ distillation,
+    in-cluster-negative co-loss, optional EMA codebook updates,
+    alternating NCI/twin stages, validation-driven RQ refit with
+    Hungarian alignment, gradient accumulation and ``--resume``.  The
+    first refit aligns to ``--codebooks`` / ``--codes`` when given.
+    Returns the ``TrainLoop``."""
+    import dataclasses
+    from .. import resolve_device
+    from ..data import io as dio
+    from ..data.datasets import (ClusterNegativeSampler, JointDataset,
+                                 host_prefetch)
+    from ..models.nci import NCIT5
+    from ..models.twin_tower import tower_from_config
+    from ..ops import rq as rq_ops
+    from ..train import joint as J
+    from ..train import trainer as T
+    from ..train.loop import LoopConfig, TrainLoop
+    from ..weights import flax_names, init_random_
+
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    m, tcfg = cfg.model, cfg.train
+
+    # ---- data -----------------------------------------------------------
+    qids, qmask = dio.open_token_memmaps(args.queries, args.query_length)
+    dtok, dmask = dio.open_token_memmaps(args.documents, args.doc_length)
+    rows = dio.read_query_docids_tsv(args.train_tsv)
+    pos_doc = np.array([ids[0] for _, ids in rows], np.int64)
+    n = min(len(pos_doc), len(qids))
+    qids = np.asarray(qids, np.int32)[:n]
+    qmask = np.asarray(qmask, np.int32)[:n]
+    pos_doc = pos_doc[:n]
+    dtok = np.asarray(dtok, np.int32)
+    dmask = np.asarray(dmask, np.int32)
+    codes0 = np.load(args.codes) if args.codes else None
+    sampler = None
+    if codes0 is not None and tcfg.co_neg_num > 0 and not tcfg.no_twin_loss:
+        sampler = ClusterNegativeSampler(codes0, m.kary)
+    ds = JointDataset(
+        qids, qmask, pos_doc, dtok, dmask, sampler,
+        n_neg=tcfg.co_neg_num if sampler else 0,
+        doc_codes=(codes0 if codes0 is not None
+                   and not tcfg.pq_runtime_label else None))
+
+    # ---- parameters -----------------------------------------------------
+    dims = _nci_dims(cfg)
+    if args.remat:
+        dims = dataclasses.replace(
+            dims, t5=dataclasses.replace(dims.t5, remat=True))
+    nci = init_random_(NCIT5(dims, device=dev), tcfg.seed)
+    tower = tower_from_config(cfg.encoder, device=dev, remat=args.remat)
+    init_random_(tower.module, tcfg.seed + 1)
+    if args.tower_ckpt:
+        from ..models import convert
+        tsd = convert.load_torch_state_dict(args.tower_ckpt)
+        if any(k.startswith("ctx_model.") for k in tsd):
+            # AR2 untied: train the document (ctx) side
+            tsd = convert.split_ar2_checkpoint(tsd)["passage"]
+        tower.module.load_state_dict(convert.convert_tower(
+            tsd, cfg.encoder.family, cfg.encoder.num_layers))
+    if args.codebooks:
+        codebooks = torch.from_numpy(np.load(args.codebooks)).float()
+    else:
+        codebooks = torch.randn(
+            (cfg.rq.subvector_num, cfg.rq.kary, cfg.rq.last_dim),
+            generator=torch.Generator().manual_seed(tcfg.seed + 2)) * 0.02
+    model = J.JointModel(nci, tower, codebooks.to(dev))
+
+    # ---- optimizer: fix* -> frozen label; MultiSteps accumulation ------
+    bs = tcfg.train_batch_size
+    total = max(len(ds) // bs, 1) * tcfg.num_train_epochs
+    labels = J.joint_param_labels(
+        flax_names(model).values(), fixnci=tcfg.fixnci,
+        fixpq=tcfg.fixpq or args.pq_update == "ema",
+        fixdocenc=tcfg.fixdocenc)
+    opt = T.make_optimizer(tcfg, model, total_steps=total, labels=labels)
+    state = T.init_state(model, opt)
+    scfg = J.JointStepConfig(
+        pq_loss=tcfg.pq_loss, pq_softmax_tau=tcfg.pq_softmax_tau,
+        pq_negative=tcfg.pq_negative,
+        centroid_update_loss=tcfg.centroid_update_loss,
+        centroid_loss_scale=tcfg.centroid_loss_scale,
+        no_nci_loss=tcfg.no_nci_loss, no_twin_loss=tcfg.no_twin_loss,
+        dist_mode=cfg.rq.dist_mode, rdrop=m.rdrop,
+        runtime_label=tcfg.pq_runtime_label)
+    if args.pq_update == "ema":
+        ema_box = [rq_ops.ema_init(model.codebooks.detach())]
+        ema_step = J.make_joint_train_step_ema(model, scfg)
+
+        def joint_step(state, batch, rng):
+            state, ema_box[0], metrics = ema_step(state, ema_box[0], batch,
+                                                  rng)
+            return state, metrics
+    else:
+        joint_step = J.make_joint_train_step(model, scfg)
+    # alternating stages re-use the joint step with one side's loss off
+    steps = {"nci": joint_step}
+    alt = None
+    if args.alt_epochs:
+        alt = tuple(int(x) for x in args.alt_epochs.split(","))
+        steps = {"nci": J.make_joint_train_step(
+                     model, dataclasses.replace(scfg, no_twin_loss=True)),
+                 "twin": J.make_joint_train_step(
+                     model, dataclasses.replace(scfg, no_nci_loss=True))}
+        if args.pq_update == "ema":
+            steps["nci"] = joint_step   # EMA rides the nci stage
+
+    rng = np.random.default_rng(tcfg.seed)
+
+    def dataset_fn(epoch):
+        # batch assembly (negative sampling) overlaps the device step
+        return host_prefetch(ds.batches(bs, rng))
+
+    eval_inputs = None
+    if args.dev_tsv:
+        q, i, mk, g = _dev_inputs(args.dev_tsv, cfg, args.query_length,
+                                   args.allow_hash_tokenizer)
+        eval_inputs = {"queries": q, "query_ids": i, "query_mask": mk,
+                       "gt_docids": g}
+
+    def tower_rep(ids, mask):
+        # the live tower at call time, in its compute dtype
+        with torch.inference_mode(), T.compute_autocast(
+                dev, tower.module.dims.dtype):
+            return model.tower_rep(ids, mask).float()
+
+    loop_cfg = LoopConfig(
+        num_epochs=args.max_epochs or tcfg.num_train_epochs,
+        val_every=args.val_every, refit_rq=bool(args.dev_tsv),
+        rq_iters=args.rq_iters, alt_epochs=alt, monitor=args.monitor,
+        seed=tcfg.seed)
+    tl = TrainLoop(cfg, loop_cfg, nci, steps, state, dataset_fn,
+                   tower_rep=tower_rep, doc_tokens=dtok, doc_masks=dmask,
+                   eval_inputs=eval_inputs,
+                   ckpt_dir=osp.join(cfg.ckpt_dir, "joint"),
+                   log_dir=args.log_dir or cfg.ckpt_dir, device=dev)
+    if args.codebooks:
+        tl.codebooks = codebooks.numpy()
+    tl.doc_codes = codes0
+    if args.resume:
+        tag = None if args.resume in ("1", "best", "auto") else args.resume
+        if tl.resume(tag):
+            print(f"resumed from epoch {tl.start_epoch}")
+    state = tl.run(query_rep_fn=tower_rep if args.dev_tsv else None)
+    print(f"done: step {state.step}")
+    return tl
+
+
+def _load_nci(path, cfg, dev):
+    """The eval NCI: a ``CheckpointManager`` tag directory of the port
+    (``train``'s NCI or ``train-joint``'s ``nci.`` part) or a reference
+    Lightning checkpoint file (converted)."""
+    from ..models import convert
+    from ..models.nci import NCIT5
+    from ..train.checkpoints import restore_tree_host
+    m = cfg.model
+    if osp.isdir(path):
+        sd = restore_tree_host(osp.abspath(path))["model"]
+        if any(k.startswith("nci.") for k in sd):
+            sd = {k[4:]: v for k, v in sd.items() if k.startswith("nci.")}
+    else:
+        sd = convert.load_torch_state_dict(path)
+        sd = {k[len("model."):] if k.startswith("model.") else k: v
+              for k, v in sd.items()}
+        sd = convert.convert_nci_checkpoint(
+            sd, m.num_layers, m.num_decoder_layers, m.adaptor_layer_num)
+    model = NCIT5(_nci_dims(cfg), device=dev)
+    model.load_state_dict(sd)
+    return model
+
+
+def cmd_eval(args):
+    """Coarse/fine evaluation (the ``marco_eval_nci_rq.sh`` stage).
+    Prints the JSON report; returns {report, evaluator, outputs,
+    query_ids, query_mask, gts}."""
+    from .. import resolve_device
+    from ..config import InferConfig
+    from ..data import io as dio
+    from ..eval.run_eval import Evaluator, write_result_files
+    from ..eval.searcher import FineIndex, build_fine_index
+    from ..train.trainer import compute_autocast
+    from ..utils.timers import profiler_trace
+
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    model = _load_nci(args.nci_ckpt, cfg, dev)
+
+    # fine index from embeddings + codes
+    emb = np.asarray(dio.open_embedding_memmap(args.embeddings,
+                                               cfg.rq.emb_size))
+    codes = np.load(args.codes)
+    if args.corpus_int8:
+        # symmetric global-scale int8: per-query ranking is
+        # scale-invariant, so metrics move by the ~1/127 rounding only
+        from ..index.build import quantize_int8
+        emb, _ = quantize_int8(emb)
+    if args.host_stream:
+        # the corpus stays in host memory; the fine stage streams bucket
+        # panels to the card (any corpus size: the NQ 21M regime)
+        from ..utils.native import build_csr
+        offsets, doc_ids = build_csr(codes, cfg.rq.kary)
+        rows = torch.from_numpy(np.ascontiguousarray(emb[doc_ids]))
+        if args.bf16 and not args.corpus_int8:
+            rows = rows.to(torch.bfloat16)
+        fine = FineIndex(torch.from_numpy(offsets), torch.from_numpy(doc_ids),
+                         rows, codes.shape[-1], cfg.rq.kary,
+                         host_offsets=offsets, host_doc_ids=doc_ids)
+    else:
+        fine = build_fine_index(
+            codes, emb, cfg.rq.kary,
+            dtype=(torch.bfloat16 if args.bf16 and not args.corpus_int8
+                   else None), device=dev)
+    _, rep_fn = _load_tower(cfg, args.tower_ckpt, "query", dev)
+    queries, qids, qmask, gts = _dev_inputs(
+        args.dev_tsv, cfg, args.query_length, args.allow_hash_tokenizer)
+    icfg = InferConfig(
+        num_return_sequences=args.num_return_sequences,
+        recall_level=args.recall_level,
+        recall_num=tuple(int(x) for x in args.recall_num.split(",")),
+        max_cluster_docs=args.max_cluster_docs,
+        eval_all_documents=bool(args.eval_all_documents),
+        rank_mode=args.rank_mode)
+    ev = Evaluator(model, icfg, fine_index=fine, query_rep_fn=rep_fn,
+                   doc_codes=codes, host_stream=bool(args.host_stream),
+                   device=dev)
+    with profiler_trace(args.profile_dir), \
+            compute_autocast(dev, model.dims.t5.dtype):
+        if args.nq_answer_offsets:
+            # NQ answer-set mode (nqdpr_eval_nci_rq.sh): hits through the
+            # inverse doc -> answering-query arrays, not gt doc ids
+            from ..eval.ensemble import AnswerIndex
+            aidx = AnswerIndex.from_files(args.nq_answer_offsets,
+                                          args.nq_answer_array)
+            out = ev.evaluate_nq(queries, qids, qmask,
+                                 query_indices=list(range(len(queries))),
+                                 answer_index=aidx,
+                                 batch_size=args.batch_size,
+                                 keep_results=bool(args.save_path))
+        else:
+            out = ev.evaluate(queries, qids, qmask, gts,
+                              batch_size=args.batch_size,
+                              keep_results=bool(args.save_path))
+    report = {"ndoc_per_query": out.ndoc_per_query}
+    if out.coarse:
+        report["coarse"] = out.coarse
+    if out.fine:
+        report["fine"] = out.fine
+    print(json.dumps(report, indent=1, default=float))
+    if args.save_path:
+        base = args.save_path.rsplit(".", 1)[0]
+        write_result_files(out, gts, coarse_path=base + "_coarse.tsv",
+                           fine_path=base + "_fine.tsv",
+                           hardneg_path=base + "_hn.tsv",
+                           hard_neg_k=cfg.infer.save_hard_neg)
+    return dict(report=report, evaluator=ev, outputs=out, query_ids=qids,
+                query_mask=qmask, gts=gts)
+
+
+def cmd_doc2query(args):
+    """Generate pseudo-queries per passage (docT5query QG,
+    ``dataprocess/msmarco_passage/doc2query.py``).  With ``--repair``,
+    run the regeneration loop instead (``complement_qg10.py``): detect
+    empty / duplicate queries in an existing qg tsv and regenerate for
+    the affected docs until every doc has ``n_gen_query`` usable queries
+    (or ``--repair_rounds`` is spent).  Sampling draws from a
+    ``torch.Generator`` seeded with ``--seed``."""
+    from .. import resolve_device
+    from ..data.tokenize import get_tokenizer
+    from ..decode.generate import generate
+    from ..models import convert
+    from ..models.t5 import T5Dims, T5Model
+
+    dev = resolve_device(args.device)
+    tok = get_tokenizer("ance",  # the t5 tokenizer
+                        allow_hash_fallback=args.allow_hash_tokenizer)
+    sd = convert.convert_t5_model(
+        convert.load_torch_state_dict(args.checkpoint), args.num_layers,
+        args.num_layers)
+    model = T5Model(T5Dims(num_layers=args.num_layers,
+                           num_decoder_layers=args.num_layers,
+                           d_model=args.d_model, d_kv=args.d_kv,
+                           d_ff=args.d_ff, num_heads=args.num_heads,
+                           dropout_rate=0.0), device=dev)
+    model.load_state_dict(sd)
+    gen = torch.Generator().manual_seed(args.seed)
+    bs = args.batch
+
+    def gen_rows(texts, dids):
+        """n_gen_query queries per (text, did), batches padded to bs."""
+        rows = []
+        for s in range(0, len(texts), bs):
+            bt, bd = list(texts[s:s + bs]), list(dids[s:s + bs])
+            bt += [""] * (bs - len(bt))
+            bd += [None] * (bs - len(bd))
+            enc = tok(bt, max_length=args.doc_max_len, truncation=True,
+                      padding="max_length", return_tensors="np")
+            out = generate(model, np.asarray(enc["input_ids"], np.int32),
+                           np.asarray(enc["attention_mask"], np.int32), gen,
+                           max_length=args.query_max_len,
+                           num_return_sequences=args.n_gen_query,
+                           do_sample=True, device=dev)
+            dec = tok.batch_decode(out.cpu().numpy(),
+                                   skip_special_tokens=True)
+            for i, text in enumerate(dec):
+                did = bd[i // args.n_gen_query]
+                if did is not None:
+                    rows.append((text, did))
+        return rows
+
+    def corpus_texts(wanted=None):
+        """(did, content) rows, restricted to ``wanted`` doc ids."""
+        return [(int(d), c) for d, _, c in _corpus_rows(args.corpus)
+                if wanted is None or int(d) in wanted]
+
+    def write(rows):
+        with open(args.output, "w", encoding="utf-8") as fw:
+            for q, d in rows:
+                fw.write(f"{q}\t{d}\n")
+
+    if args.repair:
+        from ..data import io as dio
+        from ..data.prepare import qg_repair
+        rows = [(q, ids[0]) for q, ids in
+                dio.read_query_docids_tsv(args.repair)]
+        for rnd in range(args.repair_rounds):
+            rows, need = qg_repair(rows, n_per_doc=args.n_gen_query)
+            if not need:
+                break
+            print(f"repair round {rnd}: {len(need)} docs need "
+                  "regeneration", file=sys.stderr)
+            todo = corpus_texts(set(need))
+            rows += gen_rows([c for _, c in todo], [d for d, _ in todo])
+        rows, need = qg_repair(rows, n_per_doc=args.n_gen_query)
+        write(rows)
+        print(f"repaired qg written: {len(rows)} rows, "
+              f"{len(need)} docs still short")
+        return rows
+    todo = corpus_texts()
+    rows = gen_rows([c for _, c in todo], [d for d, _ in todo])
+    write(rows)
+    return rows
+
+
 def cmd_evaluate(args):
     """Recall/MRR of a ranks tsv against a gt tsv (host only)."""
     from ..data import io as dio
@@ -361,6 +858,16 @@ def build_parser():
     p = argparse.ArgumentParser(prog="mevi_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    sp = sub.add_parser("gen-embeddings")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--checkpoint", required=True)
+    sp.add_argument("--documents", required=True)
+    sp.add_argument("--doc_length", type=int, default=128)
+    sp.add_argument("--output", required=True)
+    sp.add_argument("--profile", action="store_true",
+                    help="encoder latency across batch sizes")
+    sp.set_defaults(fn=cmd_gen_embeddings)
+
     sp = sub.add_parser("build-index")
     sp.add_argument("--config", default=None)
     sp.add_argument("--embeddings", required=True)
@@ -421,11 +928,121 @@ def build_parser():
     sp.add_argument("--dev_batch", type=int, default=256)
     sp.set_defaults(fn=cmd_train)
 
+    sp = sub.add_parser("doc2query")
+    sp.add_argument("--checkpoint", required=True,
+                    help="docT5query torch ckpt / state dict")
+    sp.add_argument("--corpus", required=True)
+    sp.add_argument("--output", required=True)
+    sp.add_argument("--n_gen_query", type=int, default=10)
+    sp.add_argument("--doc_max_len", type=int, default=512)
+    sp.add_argument("--query_max_len", type=int, default=64)
+    sp.add_argument("--num_layers", type=int, default=12)
+    sp.add_argument("--d_model", type=int, default=768)
+    sp.add_argument("--d_kv", type=int, default=64)
+    sp.add_argument("--d_ff", type=int, default=3072)
+    sp.add_argument("--num_heads", type=int, default=12)
+    sp.add_argument("--batch", type=int, default=32)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--allow_hash_tokenizer", action="store_true")
+    sp.add_argument("--repair", default=None,
+                    help="existing qg tsv: run the regeneration loop")
+    sp.add_argument("--repair_rounds", type=int, default=3)
+    sp.set_defaults(fn=cmd_doc2query)
+
+    sp = sub.add_parser("train-joint")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--queries", required=True,
+                    help="query token memmap prefix")
+    sp.add_argument("--query_length", type=int, default=32)
+    sp.add_argument("--train_tsv", required=True,
+                    help="query -> docid tsv (row-aligned to queries)")
+    sp.add_argument("--documents", required=True,
+                    help="corpus token memmap prefix")
+    sp.add_argument("--doc_length", type=int, default=128)
+    sp.add_argument("--codebooks", default=None,
+                    help="rq_codebooks.npy initial codebooks")
+    sp.add_argument("--codes", default=None,
+                    help="rq_codes.npy for in-cluster negative sampling")
+    sp.add_argument("--tower_ckpt", default=None,
+                    help="torch state dict for the twin tower")
+    sp.add_argument("--pq_update", choices=["grad", "ema"],
+                    default="grad")
+    sp.add_argument("--alt_epochs", default=None,
+                    help="'a,c': nci for a of every c epochs, twin rest")
+    sp.add_argument("--dev_tsv", default=None,
+                    help="dev tsv enabling RQ-refit validation")
+    sp.add_argument("--val_every", type=int, default=1)
+    sp.add_argument("--rq_iters", type=int, default=10)
+    sp.add_argument("--monitor", default="recall100")
+    sp.add_argument("--resume", default=None,
+                    help="'best' or a checkpoint tag to resume from")
+    sp.add_argument("--max_epochs", type=int, default=0)
+    sp.add_argument("--log_dir", default=None)
+    sp.add_argument("--allow_hash_tokenizer", action="store_true")
+    sp.add_argument("--remat", action="store_true",
+                    help="recompute each T5 block of the NCI and the "
+                         "tower in the backward (training memory)")
+    sp.set_defaults(fn=cmd_train_joint)
+
+    sp = sub.add_parser("eval")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--nci_ckpt", required=True,
+                    help="a checkpoint tag directory of this package or a "
+                         "reference Lightning checkpoint file")
+    sp.add_argument("--tower_ckpt", required=True)
+    sp.add_argument("--embeddings", required=True)
+    sp.add_argument("--codes", required=True)
+    sp.add_argument("--dev_tsv", required=True)
+    sp.add_argument("--query_length", type=int, default=32)
+    sp.add_argument("--num_return_sequences", type=int, default=10)
+    sp.add_argument("--recall_level", default="both")
+    sp.add_argument("--recall_num", default="1,5,10,20,50,100,1000")
+    sp.add_argument("--max_cluster_docs", type=int, default=4096)
+    sp.add_argument("--rank_mode", default="score",
+                    choices=("score", "beam_major"),
+                    help="fine pool ordering: global tower top-k or "
+                         "beam-rank-major with tower tiebreak")
+    sp.add_argument("--batch_size", type=int, default=16)
+    sp.add_argument("--bf16", action="store_true",
+                    help="bf16 fine index (host-streamed corpus too)")
+    sp.add_argument("--corpus_int8", action="store_true",
+                    help="int8-quantize the fine index (half memory)")
+    sp.add_argument("--host_stream", action="store_true",
+                    help="corpus stays host-resident; fine stage "
+                         "streams bucket panels to the device (any "
+                         "corpus size: the NQ 21M regime)")
+    sp.add_argument("--eval_all_documents", action="store_true")
+    sp.add_argument("--save_path", default=None)
+    sp.add_argument("--profile_dir", default=None,
+                    help="write a torch.profiler trace here")
+    sp.add_argument("--allow_hash_tokenizer", action="store_true")
+    sp.add_argument("--nq_answer_offsets", default=None,
+                    help="test_inverse_offsets.bin: NQ answer-set mode")
+    sp.add_argument("--nq_answer_array", default=None,
+                    help="test_inverse_array.bin (with --nq_answer_offsets)")
+    sp.set_defaults(fn=cmd_eval)
+
     for sp in sub.choices.values():
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
 
     # host-only commands: no --device
+    sp = sub.add_parser("prepare")
+    sp.add_argument("--raw_dir", required=True)
+    sp.add_argument("--origin_dir", required=True)
+    sp.add_argument("--doc_aug", action="store_true")
+    sp.set_defaults(fn=cmd_prepare)
+
+    sp = sub.add_parser("tokenize")
+    sp.add_argument("--kind", choices=["corpus", "queries"], required=True)
+    sp.add_argument("--style", default="ance")
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--output", required=True)
+    sp.add_argument("--length", type=int, default=128)
+    sp.add_argument("--allow_hash_tokenizer", action="store_true",
+                    help="permit the offline HashTokenizer stub")
+    sp.set_defaults(fn=cmd_tokenize)
+
     sp = sub.add_parser("evaluate")
     sp.add_argument("--gt_file", required=True)
     sp.add_argument("--ranks_file", required=True)

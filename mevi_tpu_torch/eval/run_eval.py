@@ -104,9 +104,13 @@ class Evaluator:
         self._rerank = None
         if fine_index is not None and host_stream:
             offsets_h, doc_ids_h = host_csr(fine_index)
+            # a bf16 corpus takes bf16 queries, as FineReranker casts them
+            semb = fine_index.sorted_emb
+            q_dt = (torch.bfloat16 if isinstance(semb, torch.Tensor)
+                    and semb.dtype == torch.bfloat16 else None)
             self._rerank = HostStreamFineReranker(
-                fine_index.sorted_emb, offsets_h, doc_ids_h, fine_index.kary,
-                cfg.max_cluster_docs, max(cfg.recall_num),
+                semb, offsets_h, doc_ids_h, fine_index.kary,
+                cfg.max_cluster_docs, max(cfg.recall_num), query_dtype=q_dt,
                 device=self.device)
         elif fine_index is not None:
             self._rerank = FineReranker(

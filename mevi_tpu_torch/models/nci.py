@@ -336,6 +336,46 @@ class NCIT5(nn.Module):
         W_lvl, A_lvl = level_tables
         return W_lvl[t], (None if A_lvl is None else A_lvl[t])
 
+    def init_decode_state(self, batch: int, dtype=None):
+        """(decoder cache, PAWA cache, PAWA memory constants) for the
+        dynamic-``t`` step over a batch of ``batch`` rows."""
+        L = self.dims.max_output_length
+        dec_cache = self.decoder.init_cache(batch, L, dtype)
+        pawa_cache = pawa_mem = None
+        if self.dims.use_pawa:
+            pawa_cache = self.pawa.init_cache(batch, L, dtype)
+            pawa_mem = self.pawa.precompute_mem_kvs(dtype)
+        return dec_cache, pawa_cache, pawa_mem
+
+    def decode_logits_step(self, tok_t, t, dec_cache, pawa_cache, cross_kvs,
+                           pawa_mem, memory_mask=None, beams: int = 1,
+                           level_tables=None):
+        """Single-token decode at position ``t`` (int or 0-d tensor)
+        through the preallocated caches of :meth:`init_decode_state`,
+        written in place.  With ``beams > 1``, ``cross_kvs`` /
+        ``memory_mask`` are per query (``b // beams`` rows).
+        ``level_tables``: the full ``head_level_tables()`` output.
+        Returns (compact logits (b, kary+1), dec_cache, pawa_cache)."""
+        d = self.dims
+        K, L = d.kary, d.max_output_length
+        embed_t = self.decode_embeddings(tok_t.long())
+        hidden_t, dec_cache = self.decoder.decode_step(
+            embed_t, t, dec_cache, cross_kvs, extend_mask(memory_mask),
+            beams=beams)
+        seq_t = hidden_t[:, 0, :] * (d.t5.d_model ** -0.5)
+        h_t = None
+        if d.use_pawa:
+            h_t, pawa_cache = self.pawa.decode_step(embed_t, t, pawa_cache,
+                                                    pawa_mem)
+            h_t = h_t[:, 0, :]
+        W_t, A_t = self._tables_at(t, level_tables)
+        logits = self._level_logits(seq_t, h_t, W_t, A_t)
+        last = torch.as_tensor(t, device=logits.device) == L - 1
+        logits = logits + torch.where(
+            last, _last_position_mask(K, logits.device),
+            torch.zeros(K + 1, device=logits.device))[None]
+        return logits, dec_cache, pawa_cache
+
     def decode_logits_step_unrolled(self, tok_t, t: int, dec_entries,
                                     pawa_entries, cross_kvs,
                                     memory_mask=None, beams: int = 1,

@@ -8,8 +8,9 @@ Cross-attention over one memory key is softmax over a single key, so at
 decode time each layer's cross block collapses to ``out_proj(v_mem)``.
 Training side: dropout on the attention probabilities, on each
 attention output and in the FF (``nn.TransformerDecoderLayer``'s
-places), active in ``train()`` mode only; the decode steps are
-inference paths.
+places), active in ``train()`` mode only; the decode steps (unrolled
+over per-position entries, or dynamic-``t`` over a preallocated
+time-major cache) are inference paths.
 """
 
 from __future__ import annotations
@@ -163,6 +164,30 @@ class TorchDecoderLayer(nn.Module):
         return self._ff(x), (k_t2, v_t2)
 
 
+    def decode_step(self, x_t, t, cache_kv, mem_const):
+        """Step at position ``t`` (int or 0-d tensor) over a time-major
+        ``(max_len, b, h, dk)`` cache pair written in place at ``t``;
+        ``mem_const`` is the layer's ``out_proj(v_mem)``.  Returns
+        (out (b, 1, d), cache_kv)."""
+        ck, cv = cache_kv
+        pos = torch.arange(ck.shape[0], device=x_t.device)
+        t_idx = torch.as_tensor(t, device=x_t.device).reshape(1)
+        zero = torch.zeros((), dtype=torch.float32, device=x_t.device)
+        causal = torch.where(pos <= t_idx, zero, zero - 1e9)
+        q, k_t, v_t = self.self_attn.project_qkv(x_t)   # (b, 1, h, dk)
+        ck.index_copy_(0, t_idx, k_t.transpose(0, 1).to(ck.dtype))
+        cv.index_copy_(0, t_idx, v_t.transpose(0, 1).to(cv.dtype))
+        scores = torch.einsum("bqhd,lbhd->bhql", q, ck.to(q.dtype)) \
+            / self.self_attn.scale(q.dtype)
+        probs = torch.softmax(scores.float() + causal, dim=-1).to(q.dtype)
+        ctx = torch.einsum("bhql,lbhd->bqhd", probs, cv.to(q.dtype))
+        b = ctx.shape[0]
+        sa = self.self_attn.out_proj(ctx.reshape(b, 1, self.dims.d_model))
+        x = self.norm1(x_t + sa)
+        x = self.norm2(x + mem_const)
+        return self._ff(x), (ck, cv)
+
+
 class PawaAdaptor(nn.Module):
     """The adaptor stack producing h_a (b, l, d)."""
 
@@ -223,6 +248,23 @@ class PawaAdaptor(nn.Module):
             out.append(layer.cross_attn.out_proj(
                 v.reshape(1, 1, self.dims.d_model)))
         return out
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """Per-layer time-major ``(max_len, b, h, dk)`` cache pairs."""
+        d = self.dims
+        w = self.memory_embedding
+        shape = (max_len, batch, d.num_heads, d.d_model // d.num_heads)
+        return [(torch.zeros(shape, dtype=dtype or w.dtype, device=w.device),
+                 torch.zeros(shape, dtype=dtype or w.dtype, device=w.device))
+                for _ in self.layers]
+
+    def decode_step(self, embed_t, t, cache, mem_kvs):
+        """embed_t (b, 1, d) at position ``t`` -> (h_a_t (b, 1, d),
+        cache)."""
+        x = embed_t
+        for layer, ckv, mkv in zip(self.layers, cache, mem_kvs):
+            x, _ = layer.decode_step(x, t, ckv, mkv)
+        return x, cache
 
     def decode_step_unrolled(self, embed_t, t: int, entries, mem_kvs=None):
         """Static-``t`` step over a per-position entry list (each entry

@@ -6,8 +6,11 @@
 * relative position bias only in block 0 of each stack, shared onward,
 * additive -1e9 masks, softmax in float32,
 * heads-last layouts ``(b, l, h, dk)`` at every public function, and
-  per-position decode cache entries as tuples over layers of ``(k, v)``
-  arrays of shape ``(rows, h, dk)``, as in the JAX package.
+  the JAX package's two decode caches: per-position entries as tuples
+  over layers of ``(k, v)`` arrays of shape ``(rows, h, dk)`` (the
+  unrolled step at a python-int position), or preallocated time-major
+  ``(max_len, b, h, dk)`` caches written at step ``t`` (the dynamic
+  step, ``t`` an int or a 0-d tensor).
 
 Training side: dropout where the JAX modules place it (inside the FF,
 on each residual branch, on a stack's input embeddings and on its
@@ -305,6 +308,57 @@ class T5Stack(nn.Module):
         """Each layer's cross-attention (k, v), once per query."""
         assert self.is_decoder
         return [b.cross_attn.project_kv(enc_hidden) for b in self.blocks]
+
+    # -- incremental decoding (self-attention KV cache) --------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """Per-layer ``(k, v)`` caches of shape ``(max_len, b, h, d_kv)``,
+        time-major as in the JAX package (the step's write is one
+        leading-dim slab); ``dtype`` defaults to the parameters'."""
+        d = self.dims
+        w = self.final_norm.weight
+        shape = (max_len, batch, d.num_heads, d.d_kv)
+        return [(torch.zeros(shape, dtype=dtype or w.dtype, device=w.device),
+                 torch.zeros(shape, dtype=dtype or w.dtype, device=w.device))
+                for _ in self.blocks]
+
+    def decode_step(self, embed_t, t, cache, cross_kvs, enc_mask,
+                    beams: int = 1):
+        """One decode step at position ``t`` (a python int or a 0-d
+        tensor) over the preallocated ``cache`` of :meth:`init_cache`,
+        written in place at ``t``.  ``cross_kvs`` may be per query
+        (``b // beams`` rows, see :func:`_cross_ffn_step`); ``enc_mask``
+        additive.  Returns ``(hidden (b, 1, d), cache)``."""
+        assert self.is_decoder
+        d = self.dims
+        max_len = cache[0][0].shape[0]
+        pos = torch.arange(max_len, device=embed_t.device)
+        t_idx = torch.as_tensor(t, device=embed_t.device).reshape(1)
+        zero = torch.zeros((), dtype=torch.float32, device=embed_t.device)
+        causal = torch.where(pos <= t_idx, zero, zero - 1e9)
+        hidden = embed_t
+        position_bias = None
+        for i, block in enumerate(self.blocks):
+            attn = block.self_attn
+            q, k_t, v_t = attn.project_qkv(block.self_norm(hidden))
+            ck, cv = cache[i]                          # (L, b, h, dk)
+            ck.index_copy_(0, t_idx, k_t.transpose(0, 1).to(ck.dtype))
+            cv.index_copy_(0, t_idx, v_t.transpose(0, 1).to(cv.dtype))
+            if i == 0:
+                # the decoder's relative-position bias row for query t
+                buckets = relative_position_bucket(
+                    pos - t_idx, False, d.relative_attention_num_buckets,
+                    d.relative_attention_max_distance)
+                position_bias = attn.bias_table(buckets).T[None, :, None, :]
+            scores = torch.einsum("bqhd,lbhd->bhql", q, ck.to(q.dtype)
+                                  ).float()
+            probs = _softmax_f32(scores + position_bias + causal, q.dtype)
+            y = torch.einsum("bhql,lbhd->bqhd", probs, cv.to(q.dtype))
+            b = y.shape[0]
+            hidden = hidden + attn.o(y.reshape(b, 1, d.num_heads * d.d_kv))
+            hidden = _cross_ffn_step(block, hidden, cross_kvs[i],
+                                     enc_mask, beams)
+        return self.final_norm(hidden), cache
 
     def decode_step_unrolled(self, embed_t, t: int, entries, cross_kvs,
                              enc_mask, beams: int = 1):

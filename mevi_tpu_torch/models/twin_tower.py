@@ -48,10 +48,12 @@ def make_tower(family: str, dims=None, device="cuda",
     return Tower("bert", BertEncoderModel(dims, device=device, dtype=dtype))
 
 
-def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32) -> Tower:
+def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32,
+                      remat: bool = False) -> Tower:
     """Tower built from a :class:`mevi_tpu_torch.config.EncoderConfig`
     (dropout 0, as the JAX package builds it); ``enc_cfg.dtype`` is the
-    compute dtype, ``dtype`` the parameters'."""
+    compute dtype, ``dtype`` the parameters'.  ``remat``: recompute each
+    T5 block in the backward (the BERT family has no remat)."""
     if enc_cfg.family == "t5":
         dims = T5Dims(
             d_model=enc_cfg.d_model, num_layers=enc_cfg.num_layers,
@@ -60,7 +62,7 @@ def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32) -> Tower:
             num_heads=enc_cfg.num_heads,
             d_kv=enc_cfg.d_model // enc_cfg.num_heads, d_ff=enc_cfg.d_ff,
             vocab_size=enc_cfg.t5_vocab_size, dropout_rate=0.0,
-            dtype=_DTYPES[enc_cfg.dtype])
+            remat=remat, dtype=_DTYPES[enc_cfg.dtype])
         return Tower("t5", T5Model(dims, device=device, dtype=dtype))
     dims = BertDims(
         vocab_size=enc_cfg.vocab_size, d_model=enc_cfg.d_model,

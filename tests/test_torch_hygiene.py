@@ -84,6 +84,10 @@ def _entry_points(tmp=None):
                                            bucket_scores_v2, bucket_scores_v3)
     from mevi_tpu_torch.scripts import profile_bucket
     from mevi_tpu_torch.serve import BucketServer
+    from mevi_tpu_torch.decode.brute import brute_force_topk
+    from mevi_tpu_torch.decode.generate import generate
+    from mevi_tpu_torch.decode.trie import build_trie, trie_beam_search
+    from mevi_tpu_torch.train.loop import LoopConfig, TrainLoop
     t5 = T5Dims(vocab_size=16, d_model=8, d_kv=2, d_ff=8, num_heads=4,
                 num_layers=1, num_decoder_layers=1)
     nd = NCIDims(t5=t5, kary=2, max_output_length=3, adaptor_layer_num=1,
@@ -119,7 +123,20 @@ def _entry_points(tmp=None):
     codes8 = np.zeros((8, 2), np.int32)
     qtok = synth.query_tokens(spec, draws[:1], np.random.default_rng(0))
     obs = ceiling.observed_info(spec, qtok)
+    ids2 = np.full((1, 3), 2, np.int32)
+    child, term = build_trie([[0], [1, 0]], 2)
     return {
+        "generate": lambda **kw: generate(
+            T5Model(t5, device="cpu"), ids2, np.ones_like(ids2),
+            max_length=2, **kw),
+        "trie_beam_search": lambda **kw: trie_beam_search(
+            NCIT5(nd, device="cpu"), ids2, np.ones_like(ids2), child, term,
+            num_beams=2, max_steps=2, **kw),
+        "brute_force_topk": lambda **kw: brute_force_topk(
+            NCIT5(nd, device="cpu"), ids2, np.ones_like(ids2), 1, **kw),
+        "TrainLoop": lambda **kw: TrainLoop(
+            cfg, LoopConfig(), None, {}, None, None, ckpt_dir=f"{tmp}/ck",
+            log_dir=f"{tmp}/log", **kw),
         "T5Model": lambda **kw: T5Model(t5, **kw),
         "T5EncoderModel": lambda **kw: T5EncoderModel(t5, **kw),
         "BertEncoderModel": lambda **kw: BertEncoderModel(BertDims(
@@ -190,7 +207,8 @@ ENTRY_NAMES = ["T5Model", "T5EncoderModel", "BertEncoderModel",
                "synth.fit_rq_codes", "synth.fill_sorted_matrix",
                "synth.rows_abs_max", "ceiling.candidate_stats",
                "ceiling.exact_mips_topk", "ceiling.ceiling_report",
-               "device_prefetch"]
+               "device_prefetch", "generate", "trie_beam_search",
+               "brute_force_topk", "TrainLoop"]
 
 
 @pytest.mark.parametrize("name", ENTRY_NAMES)
@@ -202,3 +220,39 @@ def test_entry_point_needs_cuda_by_default(no_cuda, name):
 @pytest.mark.parametrize("name", ENTRY_NAMES)
 def test_entry_point_runs_with_cpu(name, tmp_path):
     _entry_points(str(tmp_path))[name](device="cpu")
+
+
+CLI_DEVICE_COMMANDS = {
+    "gen-embeddings": ["--checkpoint", "x.pt", "--documents", "d",
+                       "--output", "e.bin"],
+    "eval": ["--nci_ckpt", "n", "--tower_ckpt", "t.pt", "--embeddings",
+             "e.bin", "--codes", "c.npy", "--dev_tsv", "dev.tsv"],
+    "train-joint": ["--queries", "q", "--train_tsv", "t.tsv",
+                    "--documents", "d"],
+    "doc2query": ["--checkpoint", "x.pt", "--corpus", "c.tsv",
+                  "--output", "o.tsv"],
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(CLI_DEVICE_COMMANDS))
+def test_cli_device_commands_default_to_cuda(no_cuda, cmd, tmp_path,
+                                            monkeypatch):
+    """``--device`` defaults to cuda: without a card the command stops
+    before it reads a file; with ``--device cpu`` it goes on to its
+    inputs (missing here; the CPU runs are tests/test_torch_cli_*.py).
+    No HF tokenizer files are fetched: ``from_pretrained`` fails at once."""
+    from mevi_tpu_torch.cli.main import build_parser, main
+    transformers = pytest.importorskip("transformers")
+
+    def offline(*a, **k):
+        raise OSError("no HF tokenizer files (offline test)")
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        offline)
+    argv = [cmd] + [str(tmp_path / a) if i % 2 else a for i, a in
+                    enumerate(CLI_DEVICE_COMMANDS[cmd])]
+    assert build_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv)
+    with pytest.raises((FileNotFoundError, OSError)):
+        main(argv + ["--device", "cpu", "--allow_hash_tokenizer"]
+             if cmd in ("doc2query",) else argv + ["--device", "cpu"])
