@@ -6,14 +6,16 @@ and runs the offline evaluation at full width over an MS MARCO-scale
 corpus.
 
     python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only |
-                                     --phase7-only | --phase8-only]
+                                     --phase7-only | --phase8-only |
+                                     --phase9-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
 result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
 builds the kernels and the models and runs phase 6 alone, with no
 result line; ``--phase7-only`` runs phase 6a's corpus build, then
 phase 7, with no result line; ``--phase8-only`` builds the kernels and
-runs phase 8 alone, with no result line.
+runs phase 8 alone, with no result line; ``--phase9-only`` runs phase
+6a's corpus build, phase 7, then phase 9, with no result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -120,11 +122,35 @@ Phases:
      for one query against ``nci_beam_search_incremental``; (h)
      ``doc2query`` (512 passages x 10 queries of 64 tokens, batch 128),
      a greedy ``generate`` of 64 passages against the panel's argmax at
-     every step, one ``--repair`` round over 16 broken docs.
+     every step, one ``--repair`` round over 16 broken docs;
+  9. the multi-device path (``mevi_tpu_torch.parallel``), its ranks
+     spawned by ``launch_local`` on this one card over gloo (a card
+     takes one NCCL rank): (a) ``ShardedBucketServer`` with phase 7's
+     trained NCI (its state dict through a file) and phase 2's tower in
+     four ranks, mesh data 2 x corpus 2, over phase 6's bf16 fill
+     (refilled; each rank clones its 4,420,912-row shard from the
+     parent's matrix, shared through CUDA IPC), weights checked equal
+     by gathered checksums, batches of 512 of the query language (256 a
+     data rank; 2 warm-up, 5 timed), stage ms and q/s a rank, each
+     rank's v3 launches, pools against the single-device oracle (v3
+     with ``align=1`` over the whole matrix on the ranks' own query
+     reps and beams, then ``merge_pool``; scores 1e-3), beams against
+     a single-rank beam of the same slice; (b) the same over the int8
+     fill; (c) one 256-query slice through a 1 x 1 mesh of a one-rank
+     NCCL world against the oracle; (d) one data-parallel float32 NCI
+     step and one twin step (cross-device negatives, one negative a
+     query, remat) in two ranks at batch 64 each against the
+     single-process step on the 128 rows: parameters bitwise equal
+     across the ranks, within 2 lr of the single-process step, Adam's
+     first moments no further (relative L2) from the single-process
+     step's than that step's float32 gradient is from the float64
+     gradient of the same weights (float32's own error, measured in the
+     same run).
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
-with the int8 run under ``int8``); the last line is
+with the int8 run under ``int8``; phase 9's launches summed over its
+ranks); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or if
 any phase fails.
 """
@@ -391,22 +417,32 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
 # phases 2 and 3: the served path
 # ---------------------------------------------------------------------------
 
-def build_models(cfg, dev, seed):
-    from mevi_tpu_torch.models.nci import NCIDims, NCIT5
+def t5_widths(cfg):
+    return dict(vocab_size=cfg["vocab"], d_model=cfg["d"], d_kv=cfg["d_kv"],
+                d_ff=cfg["d_ff"], num_heads=cfg["heads"],
+                num_layers=cfg["enc_layers"])
+
+
+def build_qtower(cfg, dev, seed):
+    """The T5 query tower (12 + 12) in bf16, random weights from the
+    seed."""
     from mevi_tpu_torch.models.t5 import T5Dims, T5Model
     from mevi_tpu_torch.weights import init_random_
-    kw = dict(vocab_size=cfg["vocab"], d_model=cfg["d"], d_kv=cfg["d_kv"],
-              d_ff=cfg["d_ff"], num_heads=cfg["heads"],
-              num_layers=cfg["enc_layers"])
-    t5 = T5Dims(num_decoder_layers=cfg["dec_layers"], **kw)
-    qt5 = T5Dims(num_decoder_layers=cfg["qdec_layers"], **kw)
+    qt5 = T5Dims(num_decoder_layers=cfg["qdec_layers"], **t5_widths(cfg))
+    return init_random_(T5Model(qt5, device=dev, dtype=torch.bfloat16),
+                        seed + 1)
+
+
+def build_models(cfg, dev, seed):
+    from mevi_tpu_torch.models.nci import NCIDims, NCIT5
+    from mevi_tpu_torch.models.t5 import T5Dims
+    from mevi_tpu_torch.weights import init_random_
+    t5 = T5Dims(num_decoder_layers=cfg["dec_layers"], **t5_widths(cfg))
     nci = NCIT5(NCIDims(t5=t5, kary=cfg["kary"],
                         max_output_length=cfg["levels"] + 2),
                 device=dev, dtype=torch.bfloat16)
-    qtower = T5Model(qt5, device=dev, dtype=torch.bfloat16)
     init_random_(nci, seed)
-    init_random_(qtower, seed + 1)
-    return qtower, nci
+    return build_qtower(cfg, dev, seed), nci
 
 
 def pool_with_plain(server, cidx, q_rep, B):
@@ -517,29 +553,20 @@ def run_path(tag, server, batches, cfg, counter):
 
 def profile_path(server, batches, tag="2_profile"):
     """Device busy time, idle share and the top device kernels of served
-    batches, from ``torch.profiler`` (CUPTI)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for ids, mask, ov in batches:
-            server.finalize(server.query_device(ids, mask, ov))
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
+    batches, from a ``torch.profiler`` (CUPTI) chrome trace read by
+    ``utils.profiling.traced_stage_seconds`` (CUDA kernels only)."""
+    from mevi_tpu_torch.utils.profiling import traced_stage_seconds
+    tr = traced_stage_seconds(
+        lambda i: server.finalize(server.query_device(*batches[i])),
+        len(batches))
     n = len(batches)
-    busy = sum(r[1] for r in kern)
-    emit(phase=tag, batches=n, wall_ms_per_batch=wall / n,
-         device_busy_ms_per_batch=busy / n,
-         idle_share=1.0 - busy / wall if wall else None,
-         device_kernels_per_batch=sum(r[2] for r in kern) / n,
-         top=[{"kernel": k[:90], "ms_per_batch": ms / n,
-               "calls_per_batch": c / n} for k, ms, c in kern[:12]])
+    kern = sorted(tr.per_op.items(), key=lambda r: -r[1])
+    emit(phase=tag, batches=n, wall_ms_per_batch=tr.wall_s * 1e3,
+         device_busy_ms_per_batch=tr.device_s * 1e3,
+         idle_share=1.0 - tr.device_s / tr.wall_s if tr.wall_s else None,
+         device_kernels_per_batch=sum(tr.calls.values()) / n,
+         top=[{"kernel": k[:90], "ms_per_batch": s * 1e3 / n,
+               "calls_per_batch": tr.calls[k] / n} for k, s in kern[:12]])
 
 
 def reset_counts():
@@ -1485,7 +1512,7 @@ def coarse_quality(codes, gold_codes):
             "top_beam_prefix_acc": [float(x) for x in pref.mean(0)]}
 
 
-def train_phase(cfg, seed, dev, qtower, corpus):
+def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
     """Phase 7 over phase 6's corpus: (a) the ``train`` command on the
     card (``configs/marco_rq4x5.json`` in bf16 compute, dropout 0.1,
     153,600 queries of the query language, 300 steps at batch 512, the
@@ -1495,7 +1522,8 @@ def train_phase(cfg, seed, dev, qtower, corpus):
     weights, served through ``BucketServer`` over the bf16 fill; (e) one
     twin-tower and one joint step (then its EMA variant) at full width,
     batch 64 with remat.  Returns the v3 launches of (d)'s trained
-    server."""
+    server; with ``nci_out``, (d)'s bf16 copy of the trained NCI is saved
+    there (its dims and state dict) for phase 9."""
     from mevi_tpu_torch import frozen_eval
     from mevi_tpu_torch.cli.main import _nci_dims, load_config
     from mevi_tpu_torch.cli.main import main as cli_main
@@ -1512,6 +1540,8 @@ def train_phase(cfg, seed, dev, qtower, corpus):
     from mevi_tpu_torch.train import joint as J
     from mevi_tpu_torch.train import trainer as T
     from mevi_tpu_torch.train.checkpoints import CheckpointManager
+    from mevi_tpu_torch.utils.profiling import (
+        H100_SXM_BF16_DENSE_FLOPS)
     from mevi_tpu_torch.weights import flax_names, init_random_
     P7 = TRAIN7
     t_phase = time.perf_counter()
@@ -1589,7 +1619,8 @@ def train_phase(cfg, seed, dev, qtower, corpus):
              step_ms_window_mean=window_ms / len(step_ev),
              queries_per_s=mcfg.train.train_batch_size / (med * 1e-3),
              model_tflop_per_step=flops / 1e12,
-             bf16_dense_peak_share=flops / (med * 1e-3) / 989e12,
+             bf16_dense_peak_share=(flops / (med * 1e-3)
+                                    / H100_SXM_BF16_DENSE_FLOPS),
              peak_device_gb=peak_train, card=card_line(),
              loss_first_20=losses[:20], loss_last_20=losses[-20:],
              dev_hit10_leaderboard=board, seconds=secs)
@@ -1659,6 +1690,9 @@ def train_phase(cfg, seed, dev, qtower, corpus):
                             B.bucket_scores_v3)
             if name == "trained":
                 n_trained = n
+                if nci_out:
+                    torch.save({"dims": nci16.dims,
+                                "state": nci16.state_dict()}, nci_out)
                 ms, out, (cidx, q_rep, ts, tr) = serve_stages(
                     server, batches[-1][0], mask, None)
                 err, n_sep = compare_pools(
@@ -1977,6 +2011,8 @@ def pipeline_phase(cfg, seed, dev):
     from mevi_tpu_torch.train.checkpoints import (CheckpointManager,
                                                   restore_tree_host)
     from mevi_tpu_torch.utils import native
+    from mevi_tpu_torch.utils.profiling import (
+        H100_SXM_BF16_DENSE_FLOPS)
     from mevi_tpu_torch.weights import init_random_
     P = PIPE8
     t_phase = time.perf_counter()
@@ -2073,7 +2109,7 @@ def pipeline_phase(cfg, seed, dev):
              doc_len=P["doc_len"], command_s=gen_s,
              embeddings_per_s=P["passages"] / gen_s,
              model_tflop=flops / 1e12,
-             bf16_dense_peak_share=flops / gen_s / 989e12,
+             bf16_dense_peak_share=flops / gen_s / H100_SXM_BF16_DENSE_FLOPS,
              profile=[ln.strip() for ln in prof.splitlines()
                       if ln.startswith("bs=")],
              check_rows=n_chk, max_row_rel_l2_err=float(rel.max()),
@@ -2453,6 +2489,487 @@ def pipeline_phase(cfg, seed, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the multi-device path, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# 2 x 2 mesh (data x corpus) of four ranks on cuda:0 over gloo; 9d: two
+# data ranks at batch 64 each in float32, the twin step with one
+# negative a query (7e's seven cut for the two float32 towers' memory)
+SHARD9 = dict(data=2, corpus=2, oracle_atol=1e-3, dp_batch=64, co_neg=1,
+              doc_len=128)
+
+
+def load_nci(dev, nci_path):
+    """Phase 7's trained NCI in bf16, from the state dict it saved."""
+    from mevi_tpu_torch.models.nci import NCIT5
+    saved = torch.load(nci_path, map_location=dev, weights_only=False)
+    nci = NCIT5(saved["dims"], device=dev, dtype=torch.bfloat16)
+    nci.load_state_dict(saved["state"])
+    return nci
+
+
+def rank_models(dev, nci_path, cfg, seed):
+    """A rank's models: the query tower from the seed (phase 2's) and
+    phase 7's trained NCI."""
+    return build_qtower(cfg, dev, seed), load_nci(dev, nci_path)
+
+
+def weights_checksum(*modules):
+    """(sum, sum of squares) of every parameter in float64."""
+    ps = [p.detach().double() for m in modules for p in m.parameters()]
+    return torch.stack([sum(p.sum() for p in ps),
+                        sum(p.square().sum() for p in ps)])
+
+
+def card_memory_used_mib():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def sharded_serve_rank(dev, semb, offsets, doc_ids, nci_path, cfg, seed,
+                       batches):
+    """One rank of 9a or 9b: a 2 x 2 mesh, the same weights on every rank
+    (checksums gathered over both axes), this rank's clone of its shard
+    of ``semb``, then ``ShardedBucketServer`` over the batches (its data
+    slice of each), stages synchronized and timed; its v3 launches
+    counted from 0.  Returns stage ms, launches, pool fill, peak memory
+    and the last batch's slice (query reps, codes, pool)."""
+    from mevi_tpu_torch.eval.searcher import FineIndex
+    from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.parallel import mesh as PM
+    from mevi_tpu_torch.serve import ShardedBucketServer, gather_batch
+    t0 = time.perf_counter()
+    mesh = PM.make_mesh(SHARD9["data"], SHARD9["corpus"], device=dev)
+    qtower, nci = rank_models(dev, nci_path, cfg, seed)
+    torch.cuda.synchronize(dev)
+    setup_s = {"mesh_and_models_s": time.perf_counter() - t0}
+    ck = weights_checksum(qtower, nci)
+    for ax in PM.AXES:
+        if not all(torch.equal(ck, c)
+                   for c in PM.all_gather_list(ck, mesh, ax)):
+            raise AssertionError(f"9: ranks of one {ax} group hold "
+                                 "different weights")
+    n = len(doc_ids)
+    index_kw = dict(offsets=torch.from_numpy(offsets).to(dev),
+                    doc_ids=torch.from_numpy(doc_ids).to(dev),
+                    levels=cfg["levels"], kary=cfg["kary"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    shard = PM.shard_rows(semb[:n], mesh)        # the rank's own copy
+    server = ShardedBucketServer(
+        qtower, nci, mesh, FineIndex(sorted_emb=shard, **index_kw),
+        num_beams=cfg["beams"], cap=cfg["cap"], pool=cfg["pool"],
+        length_penalty=cfg["length_penalty"])
+    torch.cuda.synchronize(dev)
+    setup_s["shard_and_server_s"] = time.perf_counter() - t0 - sum(
+        setup_s.values())
+    PM.all_gather_list(ck, mesh, PM.DATA_AXIS)   # every shard is in
+    PM.all_gather_list(ck, mesh, PM.CORPUS_AXIS)
+    used = card_memory_used_mib() if mesh.rank == 0 else None
+    B.bucket_scores_v3.launches = 0
+    stage, fill = [], []
+    for i, ids_h in enumerate(batches):
+        ids = torch.from_numpy(PM.data_slice(ids_h, mesh)).to(dev)
+        mask = torch.ones_like(ids)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        qemb, codes, bsc = server.coarse(ids, mask)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        scores, dids = server.fine(qemb, codes)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        for t in gather_batch((scores, dids, codes, bsc), mesh):
+            t.cpu()                                  # the host's batch
+        t3 = time.perf_counter()
+        if i < cfg["warmup"]:
+            setup_s[f"warmup_batch_{i}_s"] = t3 - t0
+        else:
+            stage.append({"coarse_ms": (t1 - t0) * 1e3,
+                          "fine_ms": (t2 - t1) * 1e3,
+                          "gather_ms": (t3 - t2) * 1e3,
+                          "query_ms": (t3 - t0) * 1e3})
+            fill.append(float((dids >= 0).float().mean()))
+    return dict(
+        rank=mesh.rank, coords=mesh.coords, setup_s=setup_s,
+        launches=B.bucket_scores_v3.launches, stage_ms=stage,
+        pool_filled=float(np.mean(fill)), card_used_mib=used,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        shard_rows=int(shard.shape[0]),
+        shard_gb=shard.numel() * shard.element_size() / 1e9,
+        qemb=qemb.float().cpu().numpy(), codes=codes.cpu().numpy(),
+        scores=scores.cpu().numpy(), ids=dids.cpu().numpy())
+
+
+def nccl_serve_rank(dev, semb16, offsets, doc_ids, nci_path, cfg, seed,
+                    ids_h):
+    """9c: one batch through ``ShardedBucketServer`` on a 1 x 1 mesh of
+    a one-rank NCCL world (its collectives run through NCCL)."""
+    import torch.distributed as dist
+    from mevi_tpu_torch.eval.searcher import FineIndex
+    from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.parallel import mesh as PM
+    from mevi_tpu_torch.serve import ShardedBucketServer, gather_batch
+    mesh = PM.make_mesh(1, 1, device=dev)
+    backends = {ax: dist.get_backend(mesh.group(ax)) for ax in PM.AXES}
+    qtower, nci = rank_models(dev, nci_path, cfg, seed)
+    index = FineIndex(torch.from_numpy(offsets).to(dev),
+                      torch.from_numpy(doc_ids).to(dev),
+                      PM.shard_rows(semb16[:len(doc_ids)], mesh),
+                      cfg["levels"], cfg["kary"])
+    server = ShardedBucketServer(qtower, nci, mesh, index,
+                                 num_beams=cfg["beams"], cap=cfg["cap"],
+                                 pool=cfg["pool"],
+                                 length_penalty=cfg["length_penalty"])
+    ids = torch.from_numpy(ids_h).to(dev)
+    B.bucket_scores_v3.launches = 0
+    qemb, codes, _ = server.coarse(ids, torch.ones_like(ids))
+    scores, dids, _ = gather_batch((*server.fine(qemb, codes), codes), mesh)
+    return dict(backends=backends, launches=B.bucket_scores_v3.launches,
+                qemb=qemb.float().cpu().numpy(), codes=codes.cpu().numpy(),
+                scores=scores.cpu().numpy(), ids=dids.cpu().numpy())
+
+
+def oracle_pool(semb, offsets_d, doc_ids_d, qemb, codes, cfg, dev):
+    """The single-device pool of given query reps and beam codes: the v3
+    kernel (``align=1``, ``_beam_scores``'s window) over the unsharded
+    matrix, then ``merge_pool``."""
+    from mevi_tpu_torch.eval.searcher import merge_pool
+    from mevi_tpu_torch.index.csr import pack_codes
+    from mevi_tpu_torch.ops.bucket import bucket_scores_v3
+    B, nb, M = codes.shape
+    cap = cfg["cap"]
+    ci = pack_codes(torch.from_numpy(codes).to(dev).reshape(-1, M),
+                    cfg["kary"]).long()
+    s = offsets_d.long()[ci]
+    e = torch.minimum(offsets_d.long()[ci + 1], s + cap)
+    q = torch.from_numpy(qemb).to(dev, torch.bfloat16)
+    scores, rows = bucket_scores_v3(
+        semb, s.int().contiguous(), e.int().contiguous(),
+        q.repeat_interleave(nb, 0).contiguous(), cap, align=1, device=dev)
+    rows = rows.long()
+    ids = torch.where(rows >= 0, doc_ids_d.long()[rows.clamp(min=0)],
+                      torch.full_like(rows, -1))
+    return merge_pool(scores.reshape(B, -1), ids.reshape(B, -1), nb, cap,
+                      cfg["pool"])
+
+
+def dp_models(cfg, seed, dev):
+    """9d's float32 models at full width: the NCI of
+    ``configs/marco_rq4x5.json`` and the 12 + 12 T5 tower (remat), random
+    from the seed, dropout off."""
+    from mevi_tpu_torch.cli.main import _nci_dims, load_config
+    from mevi_tpu_torch.models.nci import NCIT5
+    from mevi_tpu_torch.models.t5 import T5Dims, T5Model
+    from mevi_tpu_torch.models.twin_tower import Tower
+    from mevi_tpu_torch.weights import init_random_
+    mcfg = load_config(TRAIN7["config"])
+    nd = _nci_dims(mcfg)
+    nd = dataclasses.replace(nd, t5=dataclasses.replace(
+        nd.t5, dropout_rate=0.0, dtype=torch.float32))
+    tdims = T5Dims(num_decoder_layers=cfg["qdec_layers"], dropout_rate=0.0,
+                   remat=True, **t5_widths(cfg))
+    yield "nci", init_random_(NCIT5(nd, device=dev), seed + 93), mcfg
+    yield "twin", Tower("t5", init_random_(T5Model(tdims, device=dev),
+                                           seed + 95)), mcfg
+
+
+def dp_step(kind, model, mcfg, batch, mesh=None):
+    """One float32 step of ``kind`` (the NCI step, or the twin step with
+    cross-device negatives on a mesh); returns (loss, flat parameters,
+    flat Adam first moments)."""
+    from mevi_tpu_torch.train import trainer as T
+    module = model if kind == "nci" else model.module
+    opt = T.make_optimizer(mcfg.train, module, total_steps=10)
+    state = T.init_state(module, opt)
+    if kind == "nci":
+        step = T.make_nci_train_step(model, mesh=mesh)
+    else:
+        step = T.make_twin_train_step(
+            model, negatives_x_device="data" if mesh else None, mesh=mesh)
+    state, m = step(state, batch)
+    loss = float(m["loss"] if "loss" in m else m["co_loss"])
+    ps = [p for p in module.parameters() if p in opt.inner.state]
+    flat_p = torch.cat([p.detach().reshape(-1) for p in ps])
+    flat_m = torch.cat([opt.inner.state[p]["exp_avg"].reshape(-1)
+                        for p in ps])
+    return loss, flat_p, flat_m
+
+
+def grad_gap(kind, model, batch):
+    """Relative L2 distance of the float32 gradient of ``kind``'s loss on
+    ``batch`` from the same gradient of the model cast to float64: the
+    float32 error the step carries, whatever its layout."""
+    from mevi_tpu_torch.models import twin_tower as tt
+    from mevi_tpu_torch.train import trainer as T
+    module = model if kind == "nci" else model.module
+    module.requires_grad_(True).eval()
+    flats = []
+    for dt in (torch.float32, torch.float64):
+        module.to(dt).zero_grad(set_to_none=True)
+        if kind == "nci":
+            loss, _ = T.nci_loss_fn(model, batch, T.NCIStepConfig())
+        else:
+            loss, _ = tt.contrastive_loss(
+                model.rep(batch["query_ids"], batch["query_mask"]),
+                model.rep(batch["doc_ids"], batch["doc_mask"]))
+        loss.backward()
+        flats.append(torch.cat([p.grad.double().reshape(-1)
+                                for p in module.parameters()
+                                if p.grad is not None]))
+        module.zero_grad(set_to_none=True)
+    g32, g64 = flats
+    return float((g32 - g64).norm() / g64.norm())
+
+
+def bit_hash(flat):
+    """Two position-weighted sums of the float32 bits (equal bits, equal
+    hash), in chunks."""
+    h = torch.zeros(2, dtype=torch.int64, device=flat.device)
+    for s in range(0, flat.numel(), 1 << 24):
+        v = flat[s:s + (1 << 24)].view(torch.int32).long()
+        i = torch.arange(s, s + v.numel(), device=flat.device)
+        h += torch.stack([(v * (i % 65521 + 1)).sum(),
+                          (v * (i % 65519 + 7)).sum()])
+    return h.tolist()
+
+
+def dp_train_rank(dev, cfg, seed, batches, refs):
+    """9d: one data-parallel step of each kind in a 2 x 1 mesh; the
+    parameters and Adam's first moments against the single-process step
+    (``refs``, flat tensors shared from the parent)."""
+    from mevi_tpu_torch.parallel import mesh as PM
+    mesh = PM.make_mesh(2, 1, device=dev)
+    out = {}
+    for kind, model, mcfg in dp_models(cfg, seed, dev):
+        local = {k: PM.data_slice(torch.from_numpy(v).to(dev), mesh)
+                 for k, v in batches[kind].items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, flat_p, flat_m = dp_step(kind, model, mcfg, local, mesh)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        ref_p, ref_m = refs[kind]
+        dp = (flat_p - ref_p).abs()
+        buf = flat_p.clone()             # the gradient all-reduce's size
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        PM.all_reduce_sum_([buf], mesh)
+        torch.cuda.synchronize(dev)
+        out[kind] = dict(
+            loss=loss, step_ms=ms,
+            all_reduce_ms=(time.perf_counter() - t0) * 1e3,
+            hash=bit_hash(flat_p),
+            params=flat_p.numel(), max_abs_param_diff=float(dp.max()),
+            params_off_by_over_1e6th=int((dp > 1e-6).sum()),
+            moment_rel_l2=float((flat_m - ref_m).norm() / ref_m.norm()),
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del model, flat_p, flat_m, local, buf
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(cfg, seed, dev, corpus, nci_path):
+    """Phase 9: the multi-device path in ranks that share the card
+    (``parallel.mesh.launch_local`` on cuda:0 over gloo).  (a) the
+    sharded server over phase 6's bf16 fill with phase 7's trained NCI,
+    four ranks in a 2 x 2 mesh, each serving its 256-query slice of
+    batches of 512 over its own 4.4M-row shard, pools held against the
+    single-device oracle, beams against a single-rank beam; (b) the same
+    over the int8 fill; (c) one slice through a 1 x 1 mesh over NCCL;
+    (d) one data-parallel NCI and twin step in two ranks at batch 64
+    each in float32 against the single-process step on 128 rows, within
+    that step's float32 error (its gradient against float64).  Returns
+    the v3 launches summed over ranks: (9a, 9b, 9c)."""
+    from mevi_tpu_torch.data import synth
+    from mevi_tpu_torch.decode.beam import nci_beam_search_incremental
+    from mevi_tpu_torch.parallel.mesh import launch_local
+    S9 = SHARD9
+    t_phase = time.perf_counter()
+    spec, draws = corpus["spec"], corpus["draws"]
+    offsets, doc_ids = corpus["offsets"], corpus["doc_ids"]
+    Bq, cap = cfg["batch"], cfg["cap"]
+    secs = {}
+    rng = np.random.default_rng(seed + 91)
+    batches = [synth.query_tokens(spec, draws[rng.integers(
+        0, spec.ndoc, Bq)], rng).astype(np.int32)
+        for _ in range(cfg["warmup"] + cfg["timed"])]
+    nci = load_nci(dev, nci_path)
+    with torch.inference_mode():
+        tables = nci.head_level_tables()
+    off_d = torch.from_numpy(offsets).to(dev)
+    ids_d = torch.from_numpy(doc_ids).to(dev)
+    half = Bq // S9["data"]
+    # the single-rank beam of each data slice of the last batch
+    beams = []
+    for d in range(S9["data"]):
+        ids = torch.from_numpy(batches[-1][d * half:(d + 1) * half]).to(dev)
+        with torch.inference_mode():
+            beams.append(nci_beam_search_incremental(
+                nci, ids, torch.ones_like(ids), cfg["beams"],
+                cfg["length_penalty"], level_tables=tables)[0].cpu().numpy())
+    del nci, tables
+    counts = {}
+
+    def serve(tag, semb):
+        """One four-rank launch over ``semb``; the ranks' pools against
+        the oracle, their beams against the single-rank beams."""
+        t0 = time.perf_counter()
+        res = launch_local(sharded_serve_rank, S9["data"] * S9["corpus"],
+                           "gloo", "cuda:0", semb, offsets, doc_ids,
+                           nci_path, cfg, seed, batches)
+        secs[f"ranks_{tag}_s"] = time.perf_counter() - t0
+        errs, n_sep = [], 0
+        for r in res:
+            d, c = r["coords"]
+            twin = res[d * S9["corpus"] + (1 - c)]    # its corpus group
+            np.testing.assert_array_equal(r["ids"], twin["ids"])
+            np.testing.assert_array_equal(r["codes"], beams[d],
+                                          err_msg=f"{tag}: rank beam")
+            if c:
+                continue
+            with torch.inference_mode():
+                ref = oracle_pool(semb, off_d, ids_d, r["qemb"], r["codes"],
+                                  cfg, dev)
+            e, n = compare_pools(f"{tag}_oracle", (
+                torch.from_numpy(r["scores"]), torch.from_numpy(r["ids"])),
+                ref, S9["oracle_atol"])
+            errs.append(e)
+            n_sep += n
+        counts[tag] = [r["launches"] for r in res]
+        if min(counts[tag]) == 0:
+            raise AssertionError(f"{tag}: a rank never launched v3")
+        med = {k: [statistics.median(m[k] for m in r["stage_ms"])
+                   for r in res] for k in res[0]["stage_ms"][0]}
+        emit(phase=tag, ranks=len(res), mesh=[S9["data"], S9["corpus"]],
+             batches=cfg["timed"], batch=Bq, rank_batch=half,
+             v3_launches_by_rank=counts[tag],
+             stage_ms_median_by_rank=med,
+             queries_per_s_per_data_rank=[half / (q * 1e-3)
+                                          for q in med["query_ms"]],
+             note="four ranks sharing one card's SMs, not a multi-card "
+                  "throughput",
+             pool_filled=[r["pool_filled"] for r in res],
+             max_abs_pool_err_vs_oracle=max(errs), ids_compared=n_sep,
+             shard_rows=res[0]["shard_rows"], shard_gb=res[0]["shard_gb"],
+             peak_gb_by_rank=[r["peak_gb"] for r in res],
+             card_used_mib=res[0]["card_used_mib"],
+             parent_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+             launch_s=secs[f"ranks_{tag}_s"],
+             rank0_setup_s=res[0]["setup_s"], card=card_line())
+        return res[0]
+
+    # ---- (a) bf16, then (c) NCCL at world 1 over the same matrix --------
+    semb = timed(secs, "fill_bf16_s", lambda: synth.fill_sorted_matrix(
+        spec, corpus["tables"], draws, doc_ids, n_pad_rows=cap + 8,
+        dtype=torch.bfloat16, device=dev))
+    r0 = serve("9a_bf16", semb)
+    t0 = time.perf_counter()
+    rc = launch_local(nccl_serve_rank, 1, "nccl", "cuda:0", semb, offsets,
+                      doc_ids, nci_path, cfg, seed, batches[-1][:half])[0]
+    secs["rank_9c_s"] = time.perf_counter() - t0
+    if set(rc["backends"].values()) != {"nccl"} or rc["launches"] == 0:
+        raise AssertionError(f"9c: {rc['backends']}, {rc['launches']} "
+                             "launches")
+    np.testing.assert_array_equal(rc["codes"], r0["codes"],
+                                  err_msg="9c: beam differs from 9a's")
+    with torch.inference_mode():
+        ref = oracle_pool(semb, off_d, ids_d, rc["qemb"], rc["codes"], cfg,
+                          dev)
+    e9c, n9c = compare_pools("9c_oracle", (torch.from_numpy(rc["scores"]),
+                                           torch.from_numpy(rc["ids"])),
+                             ref, S9["oracle_atol"])
+    emit(phase="9c_nccl", backends=rc["backends"], v3_launches=rc["launches"],
+         max_abs_pool_err_vs_oracle=e9c, ids_compared=n9c,
+         launch_s=secs["rank_9c_s"])
+    del semb, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the int8 fill (phase 6c's quantization) ---------------------
+    q_scale = 126.0 / synth.rows_abs_max(corpus["tables"], draws,
+                                         device=dev)
+    semb = timed(secs, "fill_int8_s", lambda: synth.fill_sorted_matrix(
+        spec, corpus["tables"], draws, doc_ids, n_pad_rows=cap + 8,
+        dtype=torch.int8, q_scale=q_scale, device=dev))
+    serve("9b_int8", semb)
+    del semb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) data-parallel steps at full width --------------------------
+    nb = 2 * S9["dp_batch"]
+    g = rng.integers(0, spec.ndoc, nb)
+    q = synth.query_tokens(spec, draws[g], rng).astype(np.int32)
+    docs = rng.integers(2, cfg["vocab"], (nb * (1 + S9["co_neg"]),
+                                          S9["doc_len"])).astype(np.int32)
+    dp_batches = {
+        "nci": {"query_ids": q, "query_mask": np.ones_like(q),
+                "codes": corpus["codes"][g].astype(np.int32)},
+        "twin": {"query_ids": q, "query_mask": np.ones_like(q),
+                 "doc_ids": docs, "doc_mask": np.ones_like(docs)}}
+    # the single-process step on the 128 rows; then, from the same
+    # initial weights, float32's own error: its gradient against the
+    # float64 one (a 12-layer T5 at random init is ill-conditioned)
+    refs, single = {}, {}
+    for gap in (False, True):
+        for kind, model, mcfg in dp_models(cfg, seed, dev):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in dp_batches[kind].items()}
+            if gap:
+                single[kind]["float32_grad_rel_l2_vs_float64"] = grad_gap(
+                    kind, model, batch)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, flat_p, flat_m = dp_step(kind, model, mcfg, batch)
+                torch.cuda.synchronize()
+                single[kind] = dict(loss=loss, step_ms=(
+                    time.perf_counter() - t0) * 1e3)
+                refs[kind] = (flat_p, flat_m)
+            del model, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rd = launch_local(dp_train_rank, 2, "gloo", "cuda:0", cfg, seed,
+                      dp_batches, refs)
+    secs["ranks_9d_s"] = time.perf_counter() - t0
+    lr = max(mcfg.train.learning_rate, mcfg.train.decoder_learning_rate,
+             mcfg.train.docenc_learning_rate)
+    for kind in ("nci", "twin"):
+        a, b = rd[0][kind], rd[1][kind]
+        if a["hash"] != b["hash"]:
+            raise AssertionError(f"9d_{kind}: the ranks' parameters differ")
+        tol = single[kind]["float32_grad_rel_l2_vs_float64"]
+        for r in (a, b):
+            # Adam's first update is lr * g / (|g| + eps): a gradient at
+            # float32 rounding level may flip sign, so parameters are held
+            # to 2 lr, and the gradients, through Adam's first moments, to
+            # float32's own error (no further from the single-process
+            # step than that step is from float64)
+            if not (r["max_abs_param_diff"] <= 2 * lr * (1 + 1e-3)
+                    and r["moment_rel_l2"] <= tol
+                    and abs(r["loss"] - single[kind]["loss"])
+                    <= 1e-4 * abs(single[kind]["loss"])):
+                raise AssertionError(f"9d_{kind}: {r} vs {single[kind]} "
+                                     f"(moment tolerance {tol})")
+        emit(phase=f"9d_{kind}_step", ranks=2, rank_batch=S9["dp_batch"],
+             dtype="float32", single_process=single[kind],
+             by_rank=[{k: v for k, v in r.items() if k != "hash"}
+                      for r in (a, b)], bitwise_equal_across_ranks=True,
+             lr=lr, moment_tolerance=tol,
+             co_neg=S9["co_neg"] if kind == "twin" else None,
+             launch_s=secs["ranks_9d_s"])
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="9_done", seconds=time.perf_counter() - t_phase,
+         part_seconds=secs)
+    return (sum(counts["9a_bf16"]), sum(counts["9b_int8"]), rc["launches"])
+
+
 def trees_equal(tag, a, b):
     """Bitwise equality of two (nested) state dicts; returns the number
     of tensors compared."""
@@ -2610,7 +3127,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
 
 
 def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
-        phase8_only=False):
+        phase8_only=False, phase9_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -2635,7 +3152,20 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
              pipeline_v3_launches=out)
         print(card_line(), flush=True)
         return 0
-    if phase6_only or phase7_only:
+    nci_path = osp.join(tempfile.mkdtemp(prefix="chip_smoke_nci_"),
+                        "trained_nci.pt")
+    try:
+        return run_phases(cfg, seed, dev, t_start, nci_path, phase6_only,
+                          phase7_only, phase9_only)
+    finally:
+        shutil.rmtree(osp.dirname(nci_path), ignore_errors=True)
+
+
+def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
+               phase9_only):
+    """Phases 2-9 (or 6, 7, or 6a + 7 + 9 alone); the trained NCI of
+    phase 7 passes to phase 9 through the file ``nci_path``."""
+    if phase6_only or phase7_only or phase9_only:
         qtower, nci = build_models(cfg, dev, seed)
         corpus, secs = synth_corpus(cfg, seed, dev)
         out = {}
@@ -2644,7 +3174,13 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
                                                    nci, corpus, secs)
         else:
             out["trained_serve_v3_launches"] = train_phase(
-                cfg, seed, dev, qtower, corpus)
+                cfg, seed, dev, qtower, corpus, nci_out=nci_path)
+        if phase9_only:
+            del qtower, nci
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["sharded_v3_launches"] = sharded_phase(cfg, seed, dev,
+                                                       corpus, nci_path)
         emit(total_s=time.perf_counter() - t_start, **out)
         print(card_line(), flush=True)
         return 0
@@ -2659,13 +3195,20 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
     n_synth, n_synth8 = synth_phase(cfg, seed, dev, *models, corpus, secs)
     gc.collect()
     torch.cuda.empty_cache()
-    n_trained = train_phase(cfg, seed, dev, models[0], corpus)
-    # phase 8 starts from an empty card: phase 6's corpus and the
-    # phase-2 models go
-    del corpus, models
+    n_trained = train_phase(cfg, seed, dev, models[0], corpus,
+                            nci_out=nci_path)
+    # phase 8 starts from a near-empty card: the phase-2 models go, and
+    # of phase 6's corpus only its tables (~0.1 GB), draws and CSR stay,
+    # for phase 9 to refill the matrix
+    del models
+    corpus.pop("ref")
     gc.collect()
     torch.cuda.empty_cache()
     n_pipe = pipeline_phase(cfg, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n9, n9_int8, n9c = sharded_phase(cfg, seed, dev, corpus, nci_path)
+    del corpus
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -2682,12 +3225,14 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
         if mode == "v3":
             entry["launches"] += n_build + n_synth + n_trained + sum(
-                n_pipe.values())
+                n_pipe.values()) + n9 + n9c
+            # phase 9: summed over the ranks
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build,
                                          "synth_corpus_serve": n_synth,
                                          "7_trained_serve": n_trained,
-                                         **n_pipe}
+                                         **n_pipe, "9_sharded_serve": n9,
+                                         "9c_sharded_serve_nccl": n9c}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
@@ -2695,6 +3240,8 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
         entry["int8"]["launches_by_path"] = int8_paths.get(mode, {})
         if mode == "v3":
             entry["int8"]["launches_by_path"]["6c_synth_int8"] = n_synth8
+            entry["int8"]["launches_by_path"]["9_sharded_serve_int8"] = \
+                n9_int8
         kernels.append(entry)
     emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,
          eval_launches=n_eval)
@@ -2720,13 +3267,17 @@ def main(argv=None):
     ap.add_argument("--phase8-only", action="store_true",
                     help="build the kernels, run phase 8 (the CLI "
                          "pipeline) and stop")
+    ap.add_argument("--phase9-only", action="store_true",
+                    help="build the kernels and the models, run phase 6a's "
+                         "corpus build, phase 7, then phase 9 (the "
+                         "multi-device path) and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     return run(FULL, args.seed, args.phase1_only, args.phase6_only,
-               args.phase7_only, args.phase8_only)
+               args.phase7_only, args.phase8_only, args.phase9_only)
 
 
 if __name__ == "__main__":

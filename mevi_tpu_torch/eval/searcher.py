@@ -5,6 +5,11 @@ index-build time, so a cluster's members are a contiguous row range; per
 (query, beam) the fine stage scores that range against the query and the
 beams merge by one top-k (clusters are disjoint, so no dedup).  Returned
 doc ids are original corpus ids, mapped on the host.
+
+Multi-device (``sharded_fine_rerank``): the matrix is row-sharded over
+the mesh's ``corpus`` axis; each rank scores the intersection of every
+bucket with its rows through the v3 kernel, keeps a local top-k, and the
+shards' candidates merge by an all-gather over the corpus group.
 """
 
 from __future__ import annotations
@@ -18,8 +23,9 @@ from .. import resolve_device
 from ..index.csr import build_csr, pack_codes
 from ..ops.bucket import (ALIGN, bucket_scores, bucket_scores_fused,
                           bucket_scores_v3)
-from ..ops.mips import mips_topk
+from ..ops.mips import merge_shards, mips_topk
 from ..ops.topk import NEG_INF, topk_stable
+from ..parallel.mesh import CORPUS_AXIS, Mesh
 
 
 class FineIndex(NamedTuple):
@@ -65,24 +71,30 @@ def build_fine_index(codes: np.ndarray, emb, kary: int,
 
 
 def _beam_scores(query_emb, beam_codes, offsets, doc_ids, sorted_emb,
-                 kary: int, cap: int):
+                 kary: int, cap: int, row_offset: int = 0):
     """Scores + original ids for each (query, beam, slot) over the
     unaligned window ``[s, s + cap)``: a plain gather.
 
     query_emb (B, d); beam_codes (B, nb, M) -> (scores (B, nb*cap) f32,
-    ids (B, nb*cap), sizes (B, nb))."""
+    ids (B, nb*cap), sizes (B, nb)).  Rows outside ``[row_offset,
+    row_offset + local rows)`` are invalid (the sharded case: offsets and
+    doc_ids are global, ``sorted_emb`` is the local shard)."""
     B, nb, _ = beam_codes.shape
+    n_local = sorted_emb.shape[0]
     cidx = pack_codes(beam_codes, kary).long()
     start = offsets.long()[cidx]
     sizes = offsets.long()[cidx + 1] - start
     pos = torch.arange(cap, device=sorted_emb.device)
     rows = start[..., None] + pos                        # (B, nb, cap)
-    ok = pos < sizes[..., None]
-    rows_c = rows.clamp(0, sorted_emb.shape[0] - 1)
-    emb = sorted_emb[rows_c].float()                     # (B, nb, cap, d)
+    local = rows - row_offset
+    ok = (pos < sizes[..., None]) & (local >= 0) & (local < n_local)
+    local = local.clamp(0, n_local - 1)
+    emb = sorted_emb[local].float()                      # (B, nb, cap, d)
     scores = torch.einsum("bd,bncd->bnc", query_emb.float(), emb)
     scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
-    ids = torch.where(ok, doc_ids.long()[rows_c], torch.full_like(rows, -1))
+    global_rows = rows.clamp(0, doc_ids.shape[0] - 1)
+    ids = torch.where(ok, doc_ids.long()[global_rows],
+                      torch.full_like(rows, -1))
     return scores.reshape(B, nb * cap), ids.reshape(B, nb * cap), sizes
 
 
@@ -123,6 +135,66 @@ def fine_rerank(query_emb, beam_codes, offsets, doc_ids, sorted_emb,
                                       doc_ids, sorted_emb, kary, cap)
     s, i = merge_pool(scores, ids, beam_codes.shape[1], cap, pool, rank)
     return s, i, sizes.sum(-1)
+
+
+def shard_bounds(offsets, cidx, cap: int, lo: int, n_local: int):
+    """v3 kernel bounds (``align=1``) of each bucket's window ``[S,
+    min(E, S + cap))`` intersected with a shard's rows ``[lo, lo +
+    n_local)``, in the shard's local rows: ``_beam_scores``'s sharded
+    window.  offsets (C+1,) global CSR offsets; cidx (G,) cluster ids ->
+    (starts, ends) (G,) int32."""
+    ci = cidx.long()
+    s = offsets.long()[ci]
+    e = torch.minimum(offsets.long()[ci + 1], s + cap)
+    return ((s - lo).clamp(0, n_local).to(torch.int32).contiguous(),
+            (e - lo).clamp(0, n_local).to(torch.int32).contiguous())
+
+
+@torch.inference_mode()
+def shard_pool(query_emb, beam_codes, offsets, doc_ids, emb_shard,
+               mesh: Mesh, kary: int, cap: int, pool: int, device="cuda"):
+    """One rank's fine stage over its corpus shard, merged over the
+    corpus group: the v3 kernel (``align=1``) over the shard's bucket
+    bounds, a local top-k, an all-gather of every shard's candidates
+    (shard-major, as ``lax.all_gather``) and a stable top-k.  The
+    kernel's slot of a valid row is ``_beam_scores``'s shifted by a
+    constant within each bucket, so the order of valid candidates, and
+    the tie order, are the JAX function's.  Returns (scores (B, k) f32,
+    doc ids (B, k) int64, -1 past ``NEG_INF / 2``), k = min(pool,
+    nb * cap), equal on every rank of the corpus group."""
+    B, nb, M = beam_codes.shape
+    n_local = emb_shard.shape[0]
+    lo = mesh.index(CORPUS_AXIS) * n_local
+    cidx = pack_codes(beam_codes.reshape(-1, M), kary)
+    s, e = shard_bounds(offsets, cidx, cap, lo, n_local)
+    q_rep = query_emb.repeat_interleave(nb, 0).contiguous()
+    scores, rows = bucket_scores_v3(emb_shard, s, e, q_rep, cap, align=1,
+                                    device=device)
+    rows = rows.long()
+    ids = torch.where(rows >= 0, doc_ids.long()[(rows + lo).clamp(
+        0, doc_ids.shape[0] - 1)], torch.full_like(rows, -1))
+    k = min(pool, nb * cap)
+    loc_s, posn = topk_stable(scores.reshape(B, -1), k)
+    return merge_shards(loc_s, torch.gather(ids.reshape(B, -1), -1, posn),
+                        mesh, k)
+
+
+def sharded_fine_rerank(query_emb, beam_codes, index_shard: FineIndex,
+                        mesh: Mesh, cap: int, pool: int, device="cuda"):
+    """Multi-device fine re-rank (``searcher.sharded_fine_rerank``).
+
+    ``index_shard``: global offsets and doc ids with this rank's shard of
+    the cluster-sorted matrix as ``sorted_emb`` (shard ``i`` owns rows
+    ``[i * rows_per, (i + 1) * rows_per)``, see ``shard_rows``);
+    ``query_emb`` (B, d) and ``beam_codes`` (B, nb, M): this rank's data
+    slice.  Returns (top scores (B, k), top doc ids (B, k), ndoc (B,)),
+    k = min(pool, nb * cap)."""
+    scores, ids = shard_pool(query_emb, beam_codes, index_shard.offsets,
+                             index_shard.doc_ids, index_shard.sorted_emb,
+                             mesh, index_shard.kary, cap, pool, device)
+    cidx = pack_codes(beam_codes, index_shard.kary).long()
+    off = index_shard.offsets.long()
+    return scores, ids, (off[cidx + 1] - off[cidx]).sum(-1)
 
 
 class FineReranker:

@@ -30,6 +30,7 @@ from ..config import MEVIConfig
 from ..eval.searcher import FineIndex, build_fine_index
 from ..index.csr import unpack_codes
 from ..ops import rq as rq_ops
+from ..parallel.mesh import data_slice, gather_rows, pad_to
 from ..train.checkpoints import ArtifactCache
 
 _CHUNK = 1 << 20
@@ -70,6 +71,24 @@ def embed_corpus(
         if progress:
             progress(s + len(ids), n)
     return out
+
+
+def make_sharded_rep_fn(rep_fn, mesh):
+    """``rep_fn`` over the mesh's data axis (multi-device corpus
+    embedding): every rank is called with the same batch, encodes its
+    data slice of it and gets the whole batch's reps back by an
+    all-gather over the data group.  A batch that does not divide
+    ``data`` is padded (repeating its last row) and trimmed after.
+    ``embed_corpus(..., rep_fn=...)`` takes it as it takes ``rep_fn``."""
+    def f(ids, mask):
+        n = ids.shape[0]
+        pad = pad_to(n, mesh.data) - n
+        if pad:
+            ids = torch.cat([ids, ids[-1:].expand(pad, -1)])
+            mask = torch.cat([mask, mask[-1:].expand(pad, -1)])
+        reps = rep_fn(data_slice(ids, mesh), data_slice(mask, mesh))
+        return gather_rows(reps.contiguous(), mesh)[:n]
+    return f
 
 
 @dataclasses.dataclass

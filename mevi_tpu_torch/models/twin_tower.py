@@ -6,10 +6,8 @@ reference's DocumentEncoder, ``MEVI/document_encoder.py``).
 * BERT family (coCondenser / AR2-ERNIE): CLS hidden state,
 * in-batch-negative contrastive loss with the reference's target layout:
   with p_reps grouped per query (1 positive + n negatives),
-  ``target_i = i * (n_p // n_q)``.
-
-Cross-device negatives (the JAX package's ``axis_name`` all-gather)
-belong to the multi-device slice (slice E) and raise until then.
+  ``target_i = i * (n_p // n_q)``; with ``axis_name`` the reps are
+  gathered over that mesh axis first (negatives_x_device).
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import gather_rows
 from .bert import BertDims, BertEncoderModel
 from .t5 import T5Dims, T5Model
 
@@ -83,14 +82,22 @@ def similarity(q_reps: torch.Tensor, p_reps: torch.Tensor,
 
 
 def contrastive_loss(q_reps: torch.Tensor, p_reps: torch.Tensor,
-                     axis_name: Optional[str] = None,
+                     axis_name: Optional[str] = None, mesh=None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """In-batch-negative CE loss; p_reps rows are grouped per query:
-    [q0_pos, q0_neg..., q1_pos, ...].  Returns (loss, scores)."""
+    [q0_pos, q0_neg..., q1_pos, ...].  Returns (loss, scores).
+
+    With ``axis_name`` (an axis of ``mesh``, a
+    :class:`~mevi_tpu_torch.parallel.mesh.Mesh`), q_reps and p_reps are
+    all-gathered over that axis first (negatives_x_device,
+    ``document_encoder.py:74-76``): every rank computes the loss of the
+    gathered batch, and the gather's backward sums each rank's block
+    over the ranks (the transpose of ``lax.all_gather``)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "cross-device negatives (axis_name) come with the port's "
-            "multi-device slice (slice E, torch.distributed)")
+        if mesh is None:
+            raise ValueError("axis_name needs the mesh that holds it")
+        q_reps = gather_rows(q_reps, mesh, axis_name)
+        p_reps = gather_rows(p_reps, mesh, axis_name)
     scores = similarity(q_reps, p_reps)
     nq = q_reps.shape[0]
     group = p_reps.shape[0] // nq

@@ -31,10 +31,10 @@ import torch
 
 from .. import resolve_device
 from ..ops import bucket as B
+from ..utils.profiling import (H100_SXM_BF16_DENSE_FLOPS as BF16_FLOPS,
+                               H100_SXM_HBM_BYTES_PER_S as HBM_BYTES_PER_S)
 
 KERNELS = ("fused", "v2", "v3", "raw")
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 
 
 def bound_ms(nbytes, flops):

@@ -9,7 +9,9 @@
 stage over the unaligned ``[s, s + cap)`` window); ``BucketServer`` is
 the counterpart of ``PallasServer`` and scores through the bucket kernel
 with the TPU contract's aligned window (``align=8``), so its outputs
-equal ``PallasServer``'s.
+equal ``PallasServer``'s.  ``ShardedBucketServer`` is the multi-device
+server (``make_sharded_server``): queries sharded over the mesh's data
+axis, the corpus over its corpus axis.
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ import torch
 
 from . import resolve_device
 from .decode.beam import nci_beam_search_incremental
-from .eval.searcher import FineIndex, _beam_scores, host_csr, merge_pool
+from .eval.searcher import (FineIndex, _beam_scores, host_csr, merge_pool,
+                            shard_pool)
 from .index.csr import pack_codes
 from .models.nci import NCIT5
 from .models.t5 import T5Model
 from .ops.bucket import ALIGN, bucket_scores_fused, bucket_scores_v3
+from .parallel.mesh import DATA_AXIS, Mesh, gather_rows
 
 
 def _query_dtype(corpus_dtype):
@@ -183,3 +187,66 @@ class BucketServer:
         """Returns (doc scores (B, pool), original doc ids (B, pool),
         beam codes (B, nb, M), beam scores (B, nb), ndoc (B,))."""
         return self.finalize(self.query_device(query_ids, query_mask))
+
+
+class ShardedBucketServer:
+    """Multi-device server (``serve.make_sharded_server``): each rank runs
+    the query tower and the NCI beam on its data slice of the batch (head
+    tables built once, as :class:`BucketServer`), then the fine stage over
+    its corpus shard through the v3 kernel (``align=1``, the JAX
+    function's unaligned window), merged over the corpus group
+    (``eval.searcher.shard_pool``).
+
+    ``index_shard``: global offsets and doc ids with this rank's rows of
+    the cluster-sorted matrix as ``sorted_emb`` (``parallel.mesh.
+    shard_rows``).  An int8 shard is scored with bf16 queries, as the JAX
+    server casts them.  Like the JAX sharded server it has no
+    ``inv_scale``, ``rank_mode``, PAWA prefix tables or override."""
+
+    def __init__(self, qtower: T5Model, nci: NCIT5, mesh: Mesh,
+                 index_shard: FineIndex, num_beams: int = 10, cap: int = 512,
+                 pool: int = 1000, length_penalty: float = 0.8):
+        self.mesh, self.device = mesh, mesh.device
+        self.qtower, self.nci = qtower, nci
+        self.num_beams, self.cap, self.pool = num_beams, cap, pool
+        self.length_penalty = length_penalty
+        self.kary = nci.dims.kary
+        self.index = index_shard
+        if index_shard.sorted_emb.device != self.device:
+            raise ValueError(f"shard is on {index_shard.sorted_emb.device}, "
+                             f"not {self.device}")
+        self.q_dt = _query_dtype(index_shard.sorted_emb.dtype)
+        with torch.inference_mode():
+            self.level_tables = nci.head_level_tables()
+
+    @torch.inference_mode()
+    def coarse(self, query_ids, query_mask):
+        """Tower + beam on this rank's queries: (query reps (b, d) in the
+        scoring dtype, codes (b, nb, M), beam scores (b, nb))."""
+        qemb = self.qtower.first_token_rep(query_ids, query_mask)
+        codes, beam_scores, _ = nci_beam_search_incremental(
+            self.nci, query_ids, query_mask, self.num_beams,
+            self.length_penalty, level_tables=self.level_tables)
+        return qemb.to(self.q_dt), codes, beam_scores
+
+    def fine(self, qemb, codes):
+        """The sharded fine stage: (scores (b, k), doc ids (b, k))."""
+        return shard_pool(qemb, codes, self.index.offsets,
+                          self.index.doc_ids, self.index.sorted_emb,
+                          self.mesh, self.kary, self.cap, self.pool,
+                          self.device)
+
+    def __call__(self, query_ids, query_mask):
+        """This rank's data slice of a batch -> (scores (b, k), doc ids
+        (b, k), codes (b, nb, M), beam scores (b, nb)) on the device,
+        equal on every rank of the corpus group."""
+        qemb, codes, beam_scores = self.coarse(query_ids, query_mask)
+        scores, ids = self.fine(qemb, codes)
+        return scores, ids, codes, beam_scores
+
+
+@torch.inference_mode()
+def gather_batch(outputs, mesh: Mesh):
+    """Every data rank's slice of a batch's outputs, concatenated in
+    data order: the whole batch, on every rank."""
+    return tuple(gather_rows(t, mesh, DATA_AXIS) for t in outputs)

@@ -14,13 +14,15 @@
 Loss = nci (or distill) + co + centroid_scale * reconstruction, with
 per-part freezing through optimizer labels (fixnci/fixpq/fixdocenc).
 The codebook logits and the reconstruction run in float32 outside the
-compute dtype's autocast.
+compute dtype's autocast.  With a mesh, each loss reads its per-row
+inputs gathered over the data axis (``trainer``'s data parallelism), and
+the EMA statistics are the global batch's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,9 +30,11 @@ from torch import nn
 from ..models import twin_tower as tt
 from ..models.nci import NCIT5, compact_labels, make_labels
 from ..ops import rq as rq_ops
+from ..parallel.mesh import DATA_AXIS, Mesh
 from . import losses as L
-from .trainer import (TrainState, apply_gradients, compute_autocast,
-                      detach_metrics, dropout_rng, model_device, to_device)
+from .trainer import (TrainState, apply_gradients, batch_gather,
+                      compute_autocast, detach_metrics, dropout_rng,
+                      model_device, rank_share, to_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,10 +90,13 @@ def joint_param_labels(paths: Iterable[str], fixnci: bool = False,
 
 
 def joint_loss_fn(model: JointModel, batch: Dict[str, torch.Tensor],
-                  cfg: JointStepConfig) -> Tuple[torch.Tensor, Dict]:
+                  cfg: JointStepConfig, gather=lambda x: x
+                  ) -> Tuple[torch.Tensor, Dict]:
     """batch: query_ids/mask (b, Lq); pos_doc_ids/mask (b, Ld);
     neg_doc_ids/mask (b, n_neg, Ld) in-cluster negatives; optional
-    codes (b, M).  NCI dropout follows ``model.nci``'s mode."""
+    codes (b, M).  NCI dropout follows ``model.nci``'s mode.
+    ``gather``: applied to each per-row tensor the losses read
+    (``trainer.batch_gather``; the identity on one rank)."""
     nci = model.nci
     dims = nci.dims
     kary, M = dims.kary, dims.code_len
@@ -113,10 +120,11 @@ def joint_loss_fn(model: JointModel, batch: Dict[str, torch.Tensor],
     metrics = {}
     # 4) CE on labels, or distillation against the codebook logits
     if cfg.pq_loss == "label":
-        nci_loss = L.nci_ce_loss(compact, labels)
+        nci_loss = L.nci_ce_loss(gather(compact), gather(labels))
     else:
-        nci_loss = L.pq_distill_loss(nci_logits, pq_logits, cfg.pq_loss,
-                                     cfg.pq_softmax_tau, cfg.pq_negative)
+        nci_loss = L.pq_distill_loss(gather(nci_logits), gather(pq_logits),
+                                     cfg.pq_loss, cfg.pq_softmax_tau,
+                                     cfg.pq_negative)
     metrics["nci_loss"] = nci_loss
 
     # 5) twin co-loss with in-cluster negatives (positive at slot 0)
@@ -128,7 +136,7 @@ def joint_loss_fn(model: JointModel, batch: Dict[str, torch.Tensor],
         groups = torch.cat([p_reps[:, None, :],
                             n_reps.reshape(b, n_neg, -1)], 1)
         q_reps = model.tower_rep(batch["query_ids"], batch["query_mask"])
-        co_loss = tt.grouped_contrastive_loss(q_reps, groups)
+        co_loss = tt.grouped_contrastive_loss(gather(q_reps), gather(groups))
         metrics["co_loss"] = co_loss
 
     # 6) codebook reconstruction
@@ -136,7 +144,8 @@ def joint_loss_fn(model: JointModel, batch: Dict[str, torch.Tensor],
     if cfg.centroid_update_loss == "reconstruct":
         with torch.autocast(dev.type, enabled=False):
             centroid_loss = L.rq_reconstruction_loss(
-                p_reps.detach().float(), codes, model.codebooks)
+                gather(p_reps.detach().float()), gather(codes),
+                model.codebooks)
         metrics["centroid_update_loss"] = centroid_loss
 
     loss = (0.0 if cfg.no_nci_loss else nci_loss) + co_loss \
@@ -145,42 +154,54 @@ def joint_loss_fn(model: JointModel, batch: Dict[str, torch.Tensor],
     return loss, metrics
 
 
-def _joint_forward(model, cfg, batch, rng):
+def _joint_forward(model, cfg, batch, rng, gather):
     dev = model_device(model)
     model.nci.train(rng is not None)
     model.tower.eval()
     with compute_autocast(dev, model.nci.dims.t5.dtype):
-        return joint_loss_fn(model, to_device(batch, dev), cfg)
+        return joint_loss_fn(model, to_device(batch, dev), cfg, gather)
 
 
-def make_joint_train_step(model: JointModel, cfg: JointStepConfig):
+def make_joint_train_step(model: JointModel, cfg: JointStepConfig,
+                          mesh: Optional[Mesh] = None):
     """``step(state, batch, rng=None) -> (state, metrics)``; ``rng``: a
-    ``torch.Generator`` for the NCI's dropout, or None."""
+    ``torch.Generator`` for the NCI's dropout, or None.  With ``mesh``,
+    ``batch`` is this rank's data slice and the step is the global
+    batch's (``trainer``'s data parallelism)."""
+    gather = batch_gather(mesh)
+    salt = mesh.index(DATA_AXIS) if mesh is not None else 0
+
     def step(state: TrainState, batch, rng=None):
-        with dropout_rng(rng, model_device(model)):
-            loss, metrics = _joint_forward(model, cfg, batch, rng)
-            state = apply_gradients(state, loss)
+        with dropout_rng(rng, model_device(model), salt):
+            loss, metrics = _joint_forward(model, cfg, batch, rng, gather)
+            state = apply_gradients(state, rank_share(loss, mesh), mesh)
         return state, detach_metrics(metrics)
 
     return step
 
 
 def make_joint_train_step_ema(model: JointModel, cfg: JointStepConfig,
-                              decay: float = 0.99):
+                              decay: float = 0.99,
+                              mesh: Optional[Mesh] = None):
     """Variant with EMA codebook updates (``--pq_update_method ema``,
     ``pq.py:371-433``): gradients never move the codebooks (label them
     'frozen'); after each update the positives are re-embedded by the
     new tower, assigned, and the cluster statistics EMA-averaged with
     dead-code restart.  ``step(state, ema_state, batch, rng=None) ->
     (state, ema_state, metrics)``; the restart rows are drawn from a
-    device generator seeded from ``rng`` (seed 0 without one)."""
+    device generator seeded from ``rng`` (seed 0 without one).  With
+    ``mesh``, the statistics and the restart draw are the global
+    batch's: the re-embedded positives are gathered over the data axis,
+    and ``rng`` must be seeded alike on every rank."""
     dev = model_device(model)
+    gather = batch_gather(mesh)
+    salt = mesh.index(DATA_AXIS) if mesh is not None else 0
 
     def step(state: TrainState, ema_state: rq_ops.EMAState, batch, rng=None):
         b = to_device(batch, dev)
-        with dropout_rng(rng, dev):
-            loss, metrics = _joint_forward(model, cfg, b, rng)
-            state = apply_gradients(state, loss)
+        with dropout_rng(rng, dev, salt):
+            loss, metrics = _joint_forward(model, cfg, b, rng, gather)
+            state = apply_gradients(state, rank_share(loss, mesh), mesh)
         seed = 0 if rng is None else int(
             torch.randint(0, 2 ** 62, (), generator=rng))
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -188,6 +209,7 @@ def make_joint_train_step_ema(model: JointModel, cfg: JointStepConfig,
             with compute_autocast(dev, model.nci.dims.t5.dtype):
                 p_reps = model.tower_rep(b["pos_doc_ids"],
                                          b["pos_doc_mask"]).float()
+            p_reps = gather(p_reps)
             codes = rq_ops.assign(p_reps, model.codebooks, "rq",
                                   cfg.dist_mode)
             ema_state, new_cbs = rq_ops.ema_update(

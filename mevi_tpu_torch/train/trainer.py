@@ -32,6 +32,18 @@ saves and replays), and the caller's global RNG state is restored after.
 ``make_nci_train_chunk`` (K steps in one ``lax.scan`` program, which
 exists to amortize a TPU's per-dispatch floor) is not ported: steps taken
 one by one compute the same thing.
+
+Data parallelism: a step made with a ``mesh`` (``parallel.mesh.Mesh``)
+takes the rank's data slice of the batch and computes **the step on the
+global batch**, as jit over a batch-sharded mesh does.  The per-row
+tensors each loss reads are all-gathered over the data group (a gather
+whose backward sums each rank's block over the ranks), every rank
+computes the loss of the gathered batch and backpropagates ``1/data`` of
+it, then the gradients are summed over the data group in flattened
+buckets (``all_reduce_sum_``) before ``GroupedAdamW``, so the per-label
+clip sees global gradients.  (DDP's ``module.`` prefix would break the
+optimizer's path labels.)  Dropout on each rank is seeded from the
+step's generator plus the rank's data index.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from torch import nn
 from .. import as_device_tensor
 from ..config import TrainConfig
 from ..models.nci import NCIT5, compact_labels, make_labels
+from ..parallel.mesh import DATA_AXIS, Mesh, all_reduce_sum_, gather_rows
 from ..weights import flax_names
 from . import losses as L
 
@@ -216,15 +229,17 @@ def compute_autocast(device: torch.device, dtype: torch.dtype):
 
 
 @contextlib.contextmanager
-def dropout_rng(generator: Optional[torch.Generator], device: torch.device):
-    """Dropout's draws seeded from ``generator`` for the span of the
-    block, on the device's default generator (the one
-    ``torch.utils.checkpoint`` saves and replays); the global RNG state is
-    restored on exit.  Without a generator, nothing changes."""
+def dropout_rng(generator: Optional[torch.Generator], device: torch.device,
+                salt: int = 0):
+    """Dropout's draws seeded from ``generator`` (plus ``salt``, a data
+    rank's index) for the span of the block, on the device's default
+    generator (the one ``torch.utils.checkpoint`` saves and replays);
+    the global RNG state is restored on exit.  Without a generator,
+    nothing changes."""
     if generator is None:
         yield
         return
-    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator)) + salt
     cuda = []
     if device.type == "cuda":
         cuda = [device.index if device.index is not None
@@ -243,11 +258,36 @@ def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: as_device_tensor(v, device) for k, v in batch.items()}
 
 
-def apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
-    """Backward, one optimizer (micro-)step, then every gradient of the
-    model dropped (frozen parameters' too: the optimizer keeps its own
-    accumulation)."""
+def data_parallel(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.data > 1
+
+
+def batch_gather(mesh: Optional[Mesh]):
+    """The gather of a loss's per-row inputs over the data axis: the
+    identity on one data rank; float tensors go as float32 (every loss
+    computes in float32)."""
+    if not data_parallel(mesh):
+        return lambda x: x
+    return lambda x: gather_rows(x.float() if x.is_floating_point() else x,
+                                 mesh, DATA_AXIS)
+
+
+def rank_share(loss: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """What one data rank backpropagates of a loss every rank computes
+    over the gathered batch."""
+    return loss / mesh.data if data_parallel(mesh) else loss
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    mesh: Optional[Mesh] = None) -> TrainState:
+    """Backward, the gradients summed over the data group (with a mesh),
+    one optimizer (micro-)step, then every gradient of the model dropped
+    (frozen parameters' too: the optimizer keeps its own accumulation).
+    ``loss``: this rank's share (:func:`rank_share`)."""
     loss.backward()
+    if data_parallel(mesh):
+        all_reduce_sum_([p.grad for p in state.optimizer.params
+                         if p.grad is not None], mesh, DATA_AXIS)
     state.optimizer.step()
     state.model.zero_grad(set_to_none=True)
     state.step += 1
@@ -270,9 +310,12 @@ class NCIStepConfig:
 
 
 def nci_loss_fn(model: NCIT5, batch: Dict[str, torch.Tensor],
-                step_cfg: NCIStepConfig) -> Tuple[torch.Tensor, Dict]:
+                step_cfg: NCIStepConfig, gather=lambda x: x
+                ) -> Tuple[torch.Tensor, Dict]:
     """batch: query_ids (b, Lq), query_mask, codes (b, M), on the
-    model's device.  Dropout follows the model's ``train()`` mode."""
+    model's device.  Dropout follows the model's ``train()`` mode.
+    ``gather``: applied to each per-row tensor the losses read
+    (:func:`batch_gather`; the identity on one rank)."""
     dims = model.dims
     codes = batch["codes"]
     _, dec_in = make_labels(codes, dims.kary, dims.max_output_length)
@@ -280,42 +323,47 @@ def nci_loss_fn(model: NCIT5, batch: Dict[str, torch.Tensor],
     input_ids, mask = batch["query_ids"], batch["query_mask"]
     if step_cfg.rdrop > 0:
         # two stochastic passes of the doubled batch in one forward
-        input_ids, mask, dec_in, labels = (
-            torch.cat([x, x], 0) for x in (input_ids, mask, dec_in, labels))
+        input_ids, mask, dec_in = (torch.cat([x, x], 0)
+                                   for x in (input_ids, mask, dec_in))
     logits, _, dec_h, _ = model(input_ids, mask, dec_in)
-    ce = L.nci_ce_loss(logits, labels)
-    metrics = {"nci_loss": ce}
-    loss = ce
-    if step_cfg.rdrop > 0:
-        b = logits.shape[0] // 2
-        if step_cfg.rdrop_loss == "KL":
-            dist = L.rdrop_kl(logits[:b], logits[b:])
-        elif step_cfg.rdrop_loss == "Contrast":
-            dist = L.rdrop_contrast(dec_h[:b], dec_h[b:])
-        else:
-            dist = L.rdrop_l2(logits[:b], logits[b:])
-        loss = ce + step_cfg.rdrop * dist
-        metrics["dist_loss"] = dist
-    metrics["loss"] = loss
-    return loss, metrics
+    labels = gather(labels)
+    if step_cfg.rdrop <= 0:
+        ce = L.nci_ce_loss(gather(logits), labels)
+        return ce, {"nci_loss": ce, "loss": ce}
+    b = logits.shape[0] // 2
+    la, lb = gather(logits[:b]), gather(logits[b:])
+    ce = L.nci_ce_loss(torch.cat([la, lb]), torch.cat([labels, labels]))
+    if step_cfg.rdrop_loss == "KL":
+        dist = L.rdrop_kl(la, lb)
+    elif step_cfg.rdrop_loss == "Contrast":
+        dist = L.rdrop_contrast(gather(dec_h[:b]), gather(dec_h[b:]))
+    else:
+        dist = L.rdrop_l2(la, lb)
+    loss = ce + step_cfg.rdrop * dist
+    return loss, {"nci_loss": ce, "dist_loss": dist, "loss": loss}
 
 
 def make_nci_train_step(model: NCIT5,
-                        step_cfg: NCIStepConfig = NCIStepConfig()):
+                        step_cfg: NCIStepConfig = NCIStepConfig(),
+                        mesh: Optional[Mesh] = None):
     """``step(state, batch, rng=None) -> (state, metrics)``: one
     micro-batch through the model (in place) and the optimizer.
     ``rng``: a ``torch.Generator`` for dropout, or None (deterministic,
-    as the JAX step with ``rng=None`` and no R-drop)."""
+    as the JAX step with ``rng=None`` and no R-drop).  With ``mesh``,
+    ``batch`` is this rank's data slice and the step is the global
+    batch's (module docstring); metrics are the global batch's."""
     dev = model_device(model)
     dtype = model.dims.t5.dtype
+    gather = batch_gather(mesh)
+    salt = mesh.index(DATA_AXIS) if mesh is not None else 0
 
     def step(state: TrainState, batch, rng=None):
         model.train(rng is not None or step_cfg.rdrop > 0)
-        with dropout_rng(rng, dev):
+        with dropout_rng(rng, dev, salt):
             with compute_autocast(dev, dtype):
                 loss, metrics = nci_loss_fn(model, to_device(batch, dev),
-                                            step_cfg)
-            state = apply_gradients(state, loss)
+                                            step_cfg, gather)
+            state = apply_gradients(state, rank_share(loss, mesh), mesh)
         return state, detach_metrics(metrics)
 
     return step
@@ -325,16 +373,26 @@ def make_nci_train_step(model: NCIT5,
 # twin-tower training step (contrastive with sampled hard negatives)
 # --------------------------------------------------------------------------
 
-def make_twin_train_step(tower,
-                         negatives_x_device: Optional[str] = None):
+def make_twin_train_step(tower, negatives_x_device: Optional[str] = None,
+                         mesh: Optional[Mesh] = None):
     """``step(state, batch) -> (state, metrics)``; batch: query_ids/mask
     (b, Lq), doc_ids/mask (b*(1+neg), Ld) grouped per query with the
     positive first (co-loss, ``document_encoder.py:61-102``).  ``tower``:
     a :class:`~mevi_tpu_torch.models.twin_tower.Tower`; deterministic, as
-    the JAX step."""
+    the JAX step.  With ``mesh``, ``batch`` is this rank's data slice and
+    the in-batch negatives are the global batch's, as under jit over a
+    batch-sharded mesh: the reps are gathered over the data axis, which
+    is all ``negatives_x_device`` may name (the JAX step's
+    ``axis_name``)."""
     from ..models import twin_tower as tt
     dev = model_device(tower.module)
     dtype = tower.module.dims.dtype
+    if negatives_x_device not in (None, DATA_AXIS):
+        raise ValueError(f"negatives_x_device={negatives_x_device!r}: the "
+                         f"batch is sharded over {DATA_AXIS!r}")
+    if negatives_x_device is not None and mesh is None:
+        raise ValueError("negatives_x_device needs the mesh")
+    axis = DATA_AXIS if data_parallel(mesh) else None
 
     def step(state: TrainState, batch):
         tower.module.eval()
@@ -342,8 +400,8 @@ def make_twin_train_step(tower,
         with compute_autocast(dev, dtype):
             q = tower.rep(b["query_ids"], b["query_mask"])
             d = tower.rep(b["doc_ids"], b["doc_mask"])
-            loss, _ = tt.contrastive_loss(q, d, axis_name=negatives_x_device)
-        state = apply_gradients(state, loss)
+            loss, _ = tt.contrastive_loss(q, d, axis_name=axis, mesh=mesh)
+        state = apply_gradients(state, rank_share(loss, mesh), mesh)
         return state, {"co_loss": loss.detach()}
 
     return step

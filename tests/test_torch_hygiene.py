@@ -88,6 +88,8 @@ def _entry_points(tmp=None):
     from mevi_tpu_torch.decode.generate import generate
     from mevi_tpu_torch.decode.trie import build_trie, trie_beam_search
     from mevi_tpu_torch.train.loop import LoopConfig, TrainLoop
+    from mevi_tpu_torch.eval.searcher import sharded_fine_rerank
+    from mevi_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
     t5 = T5Dims(vocab_size=16, d_model=8, d_kv=2, d_ff=8, num_heads=4,
                 num_layers=1, num_decoder_layers=1)
     nd = NCIDims(t5=t5, kary=2, max_output_length=3, adaptor_layer_num=1,
@@ -192,6 +194,11 @@ def _entry_points(tmp=None):
             spec, tables, draws, codes8, qtok, np.zeros(1, np.int64), **kw),
         "device_prefetch": lambda **kw: list(device_prefetch(
             iter([{"x": np.zeros(2)}]), **kw)),
+        "make_mesh": lambda **kw: make_mesh(**kw),
+        "single_device_mesh": lambda **kw: single_device_mesh(**kw),
+        "sharded_fine_rerank": lambda **kw: sharded_fine_rerank(
+            q, torch.zeros((2, 1, 1), dtype=torch.int32), index,
+            single_device_mesh("cpu"), 4, 4, **kw),
     }
 
 
@@ -208,7 +215,8 @@ ENTRY_NAMES = ["T5Model", "T5EncoderModel", "BertEncoderModel",
                "synth.rows_abs_max", "ceiling.candidate_stats",
                "ceiling.exact_mips_topk", "ceiling.ceiling_report",
                "device_prefetch", "generate", "trie_beam_search",
-               "brute_force_topk", "TrainLoop"]
+               "brute_force_topk", "TrainLoop", "make_mesh",
+               "single_device_mesh", "sharded_fine_rerank"]
 
 
 @pytest.mark.parametrize("name", ENTRY_NAMES)

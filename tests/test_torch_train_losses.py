@@ -11,6 +11,7 @@ import torch
 from mevi_tpu.models import twin_tower as jtt
 from mevi_tpu.train import losses as JL
 from mevi_tpu_torch.models import twin_tower as ptt
+from mevi_tpu_torch.parallel.mesh import single_device_mesh
 from mevi_tpu_torch.train import losses as PL
 
 ATOL = 2e-5
@@ -128,9 +129,16 @@ def test_contrastive_loss():
     q, p = randn(rng, 4, 8), randn(rng, 12, 8)
     check(lambda x, y: jtt.contrastive_loss(x, y)[0],
           lambda x, y: ptt.contrastive_loss(x, y)[0], [q, p], (0, 1))
-    with pytest.raises(NotImplementedError, match="slice E"):
+    # cross-device negatives need the mesh that holds the axis; on a
+    # one-rank mesh the gather is the identity (the multi-rank case is
+    # tests/test_torch_parallel.py's)
+    with pytest.raises(ValueError, match="mesh"):
         ptt.contrastive_loss(torch.from_numpy(q), torch.from_numpy(p),
                              axis_name="data")
+    mesh = single_device_mesh("cpu")
+    check(lambda x, y: jtt.contrastive_loss(x, y)[0],
+          lambda x, y: ptt.contrastive_loss(x, y, axis_name="data",
+                                            mesh=mesh)[0], [q, p], (0, 1))
 
 
 def test_grouped_contrastive_loss():
