@@ -88,43 +88,42 @@ def _rank_device(device=None) -> torch.device:
     return dev
 
 
-def make_mesh(data: Optional[int] = None, corpus: int = 1, device=None,
-              backend: Optional[str] = None, config=None) -> Mesh:
+def make_mesh(data: Optional[int] = None, corpus: int = 1,
+              device=None) -> Mesh:
     """This rank's ``data x corpus`` mesh over the initialized world.
 
-    ``data`` defaults to ``world // corpus``; ``config`` (a
-    :class:`~mevi_tpu_torch.config.MeshConfig`) gives both sizes through
-    ``axis_sizes``.  Every rank builds every group in the same order
-    (``new_group`` is collective); ``backend`` is the groups' backend
-    (the world's by default).  Without an initialized world the mesh is
-    1 x 1 and has no process group; with one, every axis has its group,
-    also of one rank (so a one-rank NCCL world runs its collectives)."""
+    ``data`` defaults to ``world // corpus`` (``MeshConfig.axis_sizes``
+    gives both sizes of a config).  Every rank builds every group in the
+    same order (``new_group`` is collective), in the world's backend.
+    Without an initialized world the mesh is :func:`single_device_mesh`;
+    with one, every axis has its group, also of one rank (so a one-rank
+    NCCL world runs its collectives)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    if config is not None:
-        data, corpus = config.axis_sizes(world)
     if data is None:
         data = world // corpus
     if data * corpus != world:
         raise ValueError(f"mesh {data} x {corpus} != world of {world}")
+    if not dist.is_initialized():
+        return single_device_mesh(device)
+    rank = dist.get_rank()
     dev = _rank_device(device)
-    groups: Dict[str, Optional[dist.ProcessGroup]] = {a: None for a in AXES}
-    if dist.is_initialized():
-        for c in range(corpus):
-            ranks = [d * corpus + c for d in range(data)]
-            g = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
-                groups[DATA_AXIS] = g
-        for d in range(data):
-            ranks = [d * corpus + c for c in range(corpus)]
-            g = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
-                groups[CORPUS_AXIS] = g
+    groups: Dict[str, Optional[dist.ProcessGroup]] = {}
+    for c in range(corpus):
+        ranks = [d * corpus + c for d in range(data)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            groups[DATA_AXIS] = g
+    for d in range(data):
+        ranks = [d * corpus + c for c in range(corpus)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            groups[CORPUS_AXIS] = g
     return Mesh(data, corpus, rank, dev, groups)
 
 
 def single_device_mesh(device=None) -> Mesh:
-    """A 1 x 1 mesh: no process group, collectives are identities."""
+    """The 1 x 1 mesh of one process: no process group, collectives are
+    identities."""
     return Mesh(1, 1, 0, _rank_device(device), {a: None for a in AXES})
 
 

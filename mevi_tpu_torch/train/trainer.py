@@ -373,25 +373,20 @@ def make_nci_train_step(model: NCIT5,
 # twin-tower training step (contrastive with sampled hard negatives)
 # --------------------------------------------------------------------------
 
-def make_twin_train_step(tower, negatives_x_device: Optional[str] = None,
-                         mesh: Optional[Mesh] = None):
+def make_twin_train_step(tower, mesh: Optional[Mesh] = None):
     """``step(state, batch) -> (state, metrics)``; batch: query_ids/mask
     (b, Lq), doc_ids/mask (b*(1+neg), Ld) grouped per query with the
     positive first (co-loss, ``document_encoder.py:61-102``).  ``tower``:
     a :class:`~mevi_tpu_torch.models.twin_tower.Tower`; deterministic, as
     the JAX step.  With ``mesh``, ``batch`` is this rank's data slice and
     the in-batch negatives are the global batch's, as under jit over a
-    batch-sharded mesh: the reps are gathered over the data axis, which
-    is all ``negatives_x_device`` may name (the JAX step's
-    ``axis_name``)."""
+    batch-sharded mesh: the reps are gathered over the data axis.  (The
+    JAX step's ``negatives_x_device`` names that axis for a caller that
+    runs the step per shard under ``shard_map``; no caller of the port
+    does, so the step takes none.)"""
     from ..models import twin_tower as tt
     dev = model_device(tower.module)
     dtype = tower.module.dims.dtype
-    if negatives_x_device not in (None, DATA_AXIS):
-        raise ValueError(f"negatives_x_device={negatives_x_device!r}: the "
-                         f"batch is sharded over {DATA_AXIS!r}")
-    if negatives_x_device is not None and mesh is None:
-        raise ValueError("negatives_x_device needs the mesh")
     axis = DATA_AXIS if data_parallel(mesh) else None
 
     def step(state: TrainState, batch):

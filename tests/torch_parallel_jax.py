@@ -35,7 +35,7 @@ TRAIN = dict(learning_rate=3e-3, decoder_learning_rate=1e-3,
 NCI_CASES = {"nci": {}, "nci_rdrop_kl": dict(rdrop=0.5, rdrop_loss="KL"),
              "nci_rdrop_l2": dict(rdrop=0.5, rdrop_loss="L2"),
              "nci_rdrop_contrast": dict(rdrop=0.5, rdrop_loss="Contrast")}
-TWIN_CASES = {"twin": {}, "twin_x_device": dict(negatives_x_device="data")}
+TWIN_CASES = {"twin": {}}
 EMA_CASES = {
     "ema_label": dict(pq_loss="label"),
     "ema_ce_reconstruct": dict(pq_loss="ce",

@@ -138,26 +138,59 @@ def _adam_first_moments(model, opt):
             if params[n] in opt.inner.state}
 
 
-def run_steps(kind, inp, dev, mesh, batches, case):
+class InParts(torch.nn.Module):
+    """``model`` run on each of ``parts`` row blocks of its inputs in
+    turn, the outputs concatenated: one process's forward (and so
+    backward) with the per-row layout of a ``parts``-rank data-parallel
+    step; autograd sums the blocks' gradients."""
+
+    def __init__(self, model, parts):
+        super().__init__()
+        self.model, self.parts, self.dims = model, parts, model.dims
+
+    def forward(self, *xs):
+        outs = [self.model(*b) for b in zip(*(x.chunk(self.parts)
+                                               for x in xs))]
+        return tuple(None if o[0] is None else torch.cat(o)
+                     for o in zip(*outs))
+
+
+class TowerInParts:
+    """A twin :class:`~mevi_tpu_torch.models.twin_tower.Tower` whose reps
+    are computed a row block at a time, as :class:`InParts`."""
+
+    def __init__(self, tower, parts):
+        self.tower, self.parts, self.module = tower, parts, tower.module
+
+    def rep(self, ids, mask):
+        return torch.cat([self.tower.rep(i, m) for i, m in
+                          zip(ids.chunk(self.parts), mask.chunk(self.parts))])
+
+
+def run_steps(kind, inp, dev, mesh, batches, case, parts=1):
     """Steps of ``kind`` from the case's weights over ``batches`` (each
-    rank's slices, or the whole batches at mesh None); returns (flat
-    params after, metrics of the last step, ema state or None, Adam's
-    first moments)."""
+    rank's slices, or the whole batches at mesh None; ``parts`` > 1, NCI
+    and twin: in one process in the row layout of ``parts`` ranks);
+    returns (flat params after, metrics of the last step, ema state or
+    None, Adam's first moments)."""
     cfg = TrainConfig(**inp["train"])
     ema_out = None
     if kind == "nci":
         model = nci_model(inp, dev)
         opt = T.make_optimizer(cfg, model, total_steps=10)
         state = T.init_state(model, opt)
-        step = T.make_nci_train_step(model, T.NCIStepConfig(**case), mesh)
+        step = T.make_nci_train_step(
+            InParts(model, parts) if parts > 1 else model,
+            T.NCIStepConfig(**case), mesh)
         for b in batches:
             state, metrics = step(state, b)
     elif kind == "twin":
         model = t5_model(inp, dev)
         opt = T.make_optimizer(cfg, model, total_steps=10)
         state = T.init_state(model, opt)
-        step = T.make_twin_train_step(tt.Tower("t5", model), mesh=mesh,
-                                      **case)
+        tower = tt.Tower("t5", model)
+        step = T.make_twin_train_step(
+            TowerInParts(tower, parts) if parts > 1 else tower, mesh=mesh)
         for b in batches:
             state, metrics = step(state, b)
     else:
@@ -189,4 +222,13 @@ def train_rank(dev, inp):
     for name, (kind, case) in inp["cases"].items():
         batches = [_local(b, mesh) for b in inp["batches"][kind]]
         out[name] = run_steps(kind, inp, dev, mesh, batches, case)
+    # one process in the ranks' row layout, on its batches as given and
+    # with their halves swapped (only the order of float32 sums differs)
+    for name in inp.get("in_parts", ()):
+        kind, case = inp["cases"][name]
+        out["in_parts", name] = [
+            run_steps(kind, inp, dev, None, [
+                {k: np.concatenate(np.split(v, mesh.data)[::order])
+                 for k, v in b.items()} for b in inp["batches"][kind]],
+                case, parts=mesh.data) for order in (1, -1)]
     return out
