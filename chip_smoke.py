@@ -7,7 +7,7 @@ corpus.
 
     python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only |
                                      --phase7-only | --phase8-only |
-                                     --phase9-only]
+                                     --phase9-only | --phase10-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
 result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
@@ -15,7 +15,9 @@ builds the kernels and the models and runs phase 6 alone, with no
 result line; ``--phase7-only`` runs phase 6a's corpus build, then
 phase 7, with no result line; ``--phase8-only`` builds the kernels and
 runs phase 8 alone, with no result line; ``--phase9-only`` runs phase
-6a's corpus build, phase 7, then phase 9, with no result line.
+6a's corpus build, phase 7, then phase 9, with no result line;
+``--phase10-only`` builds the kernels and runs phase 10 alone, with no
+result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -148,12 +150,30 @@ Phases:
      same step's distance from itself with the batch's halves swapped
      (float32 rounding of the sum, measured in the same run; at least
      float32's epsilon), losses at 1e-4; parameters within 2 lr (a
-     smoke check only: Adam's first update is lr g / (|g| + eps)).
+     smoke check only: Adam's first update is lr g / (|g| + eps));
+ 10. the scripts that measure the served main path and its trained
+     quality, each
+     through its entry point: (a) ``scripts.quality_full``'s stages
+     data, train, tower and eval (``QF_STAGE`` each in turn) at full
+     width (T5-base NCI 12 + 6 with PAWA 4, a 12 + 12 tower, RQ 4 x 32,
+     bf16), cut in depth (``QUAL10``: 153,600 documents, 300 NCI steps
+     at batch 512, 200 tower steps, 512 dev queries), the bundle in a
+     temporary directory removed at the end; the QUALITY json's coarse
+     hits against a plain recomputation from ``served_eval.npz``; (b)
+     ``bench``'s random-weight pipeline at bf16 over 8,841,823 x 768
+     rows (its kernel check, recall against exact MIPS, 20 timed batches
+     of 512, the reference-style baseline, the stage split), one timed
+     batch's pool against the plain v3; (c) ``scripts.int8_tax`` over
+     (a)'s bundle at 8,841,823 rows, the trained pipeline, bf16 then
+     int8, each bench run a process of its own; its trained coarse keys
+     equal between the two.  Every bench line is printed whole, with
+     every key of the JAX line, recalls under their coverage bound.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
 with the int8 run under ``int8``; phase 9's launches summed over its
-ranks); the last line is
+ranks; phase 10's under ``launches_by_path``, bf16 and int8); the last
+line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or if
 any phase fails.
 """
@@ -3003,6 +3023,217 @@ def trees_equal(tag, a, b):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the measuring scripts (quality_full, bench, int8_tax)
+# ---------------------------------------------------------------------------
+
+# 10a's cuts, of depth only (the model, tower and RQ widths are the
+# JAX script's full ones): 153,600 documents of 1,000,000, one utterance
+# a document of 4 and one epoch of 8 (300 steps at batch 512, phase 7's
+# size), 200 tower steps of 24,000, 512 dev queries of 2,048
+QUAL10 = dict(QF_NDOC="153600", QF_UTT="1", QF_EPOCHS="1", QF_BATCH="512",
+              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="200",
+              QF_TOWER_SCAN="8", QF_TOWER_PROBE="100")
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "ndoc", "batch", "cap",
+              "pipeline", "corpus_dtype", "rpc_floor_ms", "cluster_sizes",
+              "kernel_matches_oracle", "recall100_beam_coarse",
+              "recall100_oracle_coarse", "oracle_cluster_coverage",
+              "cold_start_s", "ndoc_per_query", "sequential_qps",
+              "baseline_qps_measured", "baseline_def", "latency_b8_ms",
+              "stages", "bucket_launches")
+TRAINED_KEYS = ("trained_coarse_hit@1", "trained_coarse_hit@10",
+                "trained_fine_recall@100", "trained_fine_mrr@10",
+                "trained_fine_recall@100_beam_major",
+                "trained_fine_mrr@10_beam_major", "trained_ndoc_per_query")
+STAGE_KEYS = ("qenc_ms", "beam_ms", "bucket_ms", "rpc_floor_ms",
+              "qenc_device_ms", "beam_device_ms", "qenc_mfu_pct",
+              "beam_mfu_pct")
+
+
+class environ:
+    """Environment variables set for the span of a ``with`` block (None
+    removes one), then restored."""
+
+    def __init__(self, **kw):
+        self.kw, self.old = kw, {}
+
+    def __enter__(self):
+        for k, v in self.kw.items():
+            self.old[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_bench_line(tag, line, trained, on_card=True):
+    """Checks a bench line (every key of the JAX line, finite positive
+    rates, recalls under their coverage bound, an upper bound before the
+    cap), then prints it on a line of its own."""
+    want = BENCH_KEYS + (TRAINED_KEYS if trained else ())
+    if line["corpus_dtype"] == "int8":
+        want += ("int8_scale",)
+    if not on_card:
+        want = tuple(k for k in want if k != "kernel_matches_oracle")
+    missing = [k for k in want if k not in line]
+    missing += [f"stages.{k}" for k in STAGE_KEYS
+                if on_card and k not in line["stages"]]
+    if missing:
+        raise AssertionError(f"{tag}: the line lacks {missing}")
+    if on_card and line["kernel_matches_oracle"] is not True:
+        raise AssertionError(f"{tag}: kernel check")
+    for k in ("value", "baseline_qps_measured", "sequential_qps",
+              "latency_b8_ms"):
+        if not (np.isfinite(line[k]) and line[k] > 0):
+            raise AssertionError(f"{tag}: {k} = {line[k]}")
+    cov = line["oracle_cluster_coverage"]
+    for k in ("recall100_beam_coarse", "recall100_oracle_coarse"):
+        if line[k] > cov + 1e-9:
+            raise AssertionError(f"{tag}: {k} {line[k]} above the coverage "
+                                 f"bound {cov}")
+    print(json.dumps(line), flush=True)
+
+
+def served_coarse_hits(workdir):
+    """Coarse hit@1 / hit@10 recomputed from ``served_eval.npz`` by a
+    per-query loop: the first beam whose code tuple is the dev
+    document's."""
+    with np.load(osp.join(workdir, "served_eval.npz")) as z:
+        beams, docs = z["beam_codes"], z["dev_docs"]
+    codes = np.load(osp.join(workdir, "codes.npy"))
+    h1 = h10 = 0
+    for i, d in enumerate(docs.tolist()):
+        want = tuple(codes[d].tolist())
+        rank = next((j for j, c in enumerate(beams[i].tolist())
+                     if tuple(c) == want), None)
+        h1 += rank == 0
+        h10 += rank is not None
+    return round(h1 / len(docs), 4), round(h10 / len(docs), 4)
+
+
+def quality_phase(dev, workdir, knobs=QUAL10):
+    """10a: ``scripts.quality_full``'s stages data, train, tower and eval,
+    each through its entry point (``main``, ``QF_STAGE`` set) at full
+    width, cut in depth by ``knobs``.  Gate: the QUALITY json's coarse
+    hits equal a plain recomputation from ``served_eval.npz``.  Returns
+    eval's v3 launches and the seconds of each stage."""
+    from mevi_tpu_torch import synchronize
+    from mevi_tpu_torch.scripts import quality_full as qf
+    secs = {}
+    out = None
+    for stage in qf.STAGES:
+        reset_counts()
+        t0 = time.perf_counter()
+        with environ(**{"QF_STAGE": stage, "QF_WORKDIR": workdir,
+                        "QF_OUT": None, "QF_TINY": None, "QF_RESUME": None,
+                        "QF_TOWER_RESUME": None, **knobs}):
+            out = qf.main(["--device", str(dev)])
+        synchronize(dev)
+        secs[f"{stage}_s"] = time.perf_counter() - t0
+        n = read_counts()
+        if stage != "eval" and sum(n.values()):
+            raise AssertionError(f"10a: stage {stage} launched {n}")
+    n_eval = n["v3"]
+    if n_eval == 0:
+        raise AssertionError("10a: eval never launched v3")
+    hits = served_coarse_hits(workdir)
+    if hits != (out["coarse_hit@1"], out["coarse_hit@10"]):
+        raise AssertionError(f"10a: QUALITY coarse hits "
+                             f"{(out['coarse_hit@1'], out['coarse_hit@10'])}"
+                             f" != recomputed {hits}")
+    with open(osp.join(workdir, "ckpts", "nci", "leaderboard.json")) as fr:
+        board = json.load(fr)
+    with open(osp.join(workdir, "tower_probe.jsonl")) as fr:
+        probes = [json.loads(x) for x in fr]
+    emit(phase="10a_quality", knobs=knobs, seconds=secs, v3_launches=n_eval,
+         nci_board=board, tower_probes=probes,
+         coarse_hits_recomputed=hits,
+         quality={k: v for k, v in out.items()
+                  if k not in ("nci_ckpt", "tower_ckpt")})
+    return n_eval, secs
+
+
+def bench_phase(cfg, dev, ndoc=None):
+    """10b: ``mevi_tpu_torch.bench``'s random-weight pipeline, bf16, over
+    ``ndoc`` (default all) rows; its line, then one timed batch's pool
+    against the pool with the bucket stage recomputed by the plain v3.
+    Returns the v3 launches of the run."""
+    from mevi_tpu_torch import bench
+    keep, extras = {}, {}
+    reset_counts()
+    qps, base = bench.run(ndoc or cfg["ndocs"], extras, device=dev,
+                          keep=keep)
+    n = read_counts()
+    line = bench.result_line(qps, base, extras)
+    check_bench_line("10b", line, trained=False, on_card=dev.type == "cuda")
+    if n["v3"] == 0 or n["v3"] != line["bucket_launches"]["v3"]:
+        raise AssertionError(f"10b: launches {n}, line "
+                             f"{line['bucket_launches']}")
+    server = keep.pop("server")
+    ids, mask, ov = keep.pop("batches")[-1]
+    B = ids.shape[0]
+    _, _, _, q_rep = server.coarse(ids, mask)
+    kern = server.pool_topk(*server.bucket(ov, q_rep), B)
+    err, n_sep = compare_pools("10b_plain", kern,
+                               pool_with_plain(server, ov, q_rep, B))
+    emit(phase="10b_plain_check", max_abs_pool_err=err, ids_compared=n_sep)
+    return n["v3"]
+
+
+def tax_phase(cfg, dev, workdir, ndoc=None, extra=()):
+    """10c: ``scripts.int8_tax`` over 10a's bundle (the trained pipeline)
+    at ``ndoc`` (default all) rows, bf16 then int8, each bench run a
+    process of its own.  Gate: the trained coarse keys equal between the
+    two (the corpus dtype does not enter the coarse stage).  Returns the
+    v3 launches of the bf16 and of the int8 run."""
+    from mevi_tpu_torch.scripts import int8_tax
+    t0 = time.perf_counter()
+    art, lines = int8_tax.run(ndoc or cfg["ndocs"], str(dev), ckpt=workdir,
+                              extra=extra)
+    for dt, line in lines.items():
+        check_bench_line(f"10c_{dt}", line, trained=True,
+                         on_card=dev.type == "cuda")
+    for k in ("trained_coarse_hit@1", "trained_coarse_hit@10"):
+        if lines["bf16"][k] != lines["int8"][k]:
+            raise AssertionError(f"10c: {k} bf16 {lines['bf16'][k]} != int8 "
+                                 f"{lines['int8'][k]}")
+    n = {dt: line["bucket_launches"]["v3"] for dt, line in lines.items()}
+    if not all(n.values()):
+        raise AssertionError(f"10c: v3 launches {n}")
+    emit(phase="10c_int8_tax", seconds=time.perf_counter() - t0,
+         artifact=art)
+    return n["bf16"], n["int8"]
+
+
+def scripts_phase(cfg, dev):
+    """Phase 10 (10a, 10b, 10c); the bundle lives in a temporary
+    directory removed at the end.  Returns the v3 launches by path."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        n_a, _ = quality_phase(dev, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        n_b = bench_phase(cfg, dev)
+        emit(phase="10b_seconds", seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_c, n_c8 = tax_phase(cfg, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit(phase="10_total", seconds=time.perf_counter() - t_phase)
+    return {"10a_quality_eval": n_a, "10b_bench_random": n_b,
+            "10c_bench_trained": n_c}, {"10c_bench_trained_int8": n_c8}
+
+
 def serve_phases(cfg, seed, dev, phase1_only=False):
     """Phases 1-4 over the corpus of :func:`make_corpus`.  Returns
     (phase-1 results, bf16 and int8, launches of each kernel on its
@@ -3139,7 +3370,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
 
 
 def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
-        phase8_only=False, phase9_only=False):
+        phase8_only=False, phase9_only=False, phase10_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -3162,6 +3393,12 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
         out = pipeline_phase(cfg, seed, dev)
         emit(total_s=time.perf_counter() - t_start,
              pipeline_v3_launches=out)
+        print(card_line(), flush=True)
+        return 0
+    if phase10_only:
+        n10, n10_int8 = scripts_phase(cfg, dev)
+        emit(total_s=time.perf_counter() - t_start, scripts_v3_launches=n10,
+             scripts_v3_int8_launches=n10_int8)
         print(card_line(), flush=True)
         return 0
     nci_path = osp.join(tempfile.mkdtemp(prefix="chip_smoke_nci_"),
@@ -3221,6 +3458,9 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
     torch.cuda.empty_cache()
     n9, n9_int8, n9c = sharded_phase(cfg, seed, dev, corpus, nci_path)
     del corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    n10, n10_int8 = scripts_phase(cfg, dev)
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -3237,14 +3477,15 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
         if mode == "v3":
             entry["launches"] += n_build + n_synth + n_trained + sum(
-                n_pipe.values()) + n9 + n9c
+                n_pipe.values()) + n9 + n9c + sum(n10.values())
             # phase 9: summed over the ranks
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build,
                                          "synth_corpus_serve": n_synth,
                                          "7_trained_serve": n_trained,
                                          **n_pipe, "9_sharded_serve": n9,
-                                         "9c_sharded_serve_nccl": n9c}
+                                         "9c_sharded_serve_nccl": n9c,
+                                         **n10}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
@@ -3254,6 +3495,7 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
             entry["int8"]["launches_by_path"]["6c_synth_int8"] = n_synth8
             entry["int8"]["launches_by_path"]["9_sharded_serve_int8"] = \
                 n9_int8
+            entry["int8"]["launches_by_path"].update(n10_int8)
         kernels.append(entry)
     emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,
          eval_launches=n_eval)
@@ -3283,13 +3525,17 @@ def main(argv=None):
                     help="build the kernels and the models, run phase 6a's "
                          "corpus build, phase 7, then phase 9 (the "
                          "multi-device path) and stop")
+    ap.add_argument("--phase10-only", action="store_true",
+                    help="build the kernels, run phase 10 (quality_full, "
+                         "bench, int8_tax) and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     return run(FULL, args.seed, args.phase1_only, args.phase6_only,
-               args.phase7_only, args.phase8_only, args.phase9_only)
+               args.phase7_only, args.phase8_only, args.phase9_only,
+               args.phase10_only)
 
 
 if __name__ == "__main__":
