@@ -157,7 +157,7 @@ Phases:
      data, train, tower and eval (``QF_STAGE`` each in turn) at full
      width (T5-base NCI 12 + 6 with PAWA 4, a 12 + 12 tower, RQ 4 x 32,
      bf16), cut in depth (``QUAL10``: 153,600 documents, 300 NCI steps
-     at batch 512, 200 tower steps, 512 dev queries), the bundle in a
+     at batch 512, 800 tower steps, 512 dev queries), the bundle in a
      temporary directory removed at the end; the QUALITY json's coarse
      hits against a plain recomputation from ``served_eval.npz``; (b)
      ``bench``'s random-weight pipeline at bf16 over 8,841,823 x 768
@@ -166,8 +166,12 @@ Phases:
      batch's pool against the plain v3; (c) ``scripts.int8_tax`` over
      (a)'s bundle at 8,841,823 rows, the trained pipeline, bf16 then
      int8, each bench run a process of its own; its trained coarse keys
-     equal between the two.  Every bench line is printed whole, with
-     every key of the JAX line, recalls under their coverage bound.
+     equal between the two, its trained fine recall@100 within 0.02;
+     (d) the same at the bundle's own 153,600 rows (5 timed batches),
+     where the cap truncates few leaves, its trained fine
+     recall@100 also above 0 in both.  Every bench line is printed
+     whole, with every key of the JAX line, recalls under their
+     coverage bound.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
@@ -195,6 +199,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -3030,10 +3035,17 @@ def trees_equal(tag, a, b):
 # 10a's cuts, of depth only (the model, tower and RQ widths are the
 # JAX script's full ones): 153,600 documents of 1,000,000, one utterance
 # a document of 4 and one epoch of 8 (300 steps at batch 512, phase 7's
-# size), 200 tower steps of 24,000, 512 dev queries of 2,048
+# size), 800 tower steps of 24,000 (the tower's dev exact-MIPS
+# recall@100 reaches ~0.05, against 0.002 after 200), 512 dev queries of
+# 2,048
 QUAL10 = dict(QF_NDOC="153600", QF_UTT="1", QF_EPOCHS="1", QF_BATCH="512",
-              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="200",
-              QF_TOWER_SCAN="8", QF_TOWER_PROBE="100")
+              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="800",
+              QF_TOWER_SCAN="8", QF_TOWER_PROBE="200")
+# 10c / 10d: the largest |int8 - bf16| of the trained fine recall@100, 10
+# of 512 queries: int8 rounding moves a score by ~4e-4 (an error of up to
+# half of 1/688 an element against a query of norm ~1), so a true
+# document near rank 100 may cross a neighbour
+FINE_TAX_TOL = 0.02
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "ndoc", "batch", "cap",
               "pipeline", "corpus_dtype", "rpc_floor_ms", "cluster_sizes",
               "kernel_matches_oracle", "recall100_beam_coarse",
@@ -3048,29 +3060,6 @@ TRAINED_KEYS = ("trained_coarse_hit@1", "trained_coarse_hit@10",
 STAGE_KEYS = ("qenc_ms", "beam_ms", "bucket_ms", "rpc_floor_ms",
               "qenc_device_ms", "beam_device_ms", "qenc_mfu_pct",
               "beam_mfu_pct")
-
-
-class environ:
-    """Environment variables set for the span of a ``with`` block (None
-    removes one), then restored."""
-
-    def __init__(self, **kw):
-        self.kw, self.old = kw, {}
-
-    def __enter__(self):
-        for k, v in self.kw.items():
-            self.old[k] = os.environ.get(k)
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-    def __exit__(self, *exc):
-        for k, v in self.old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def check_bench_line(tag, line, trained, on_card=True):
@@ -3131,9 +3120,10 @@ def quality_phase(dev, workdir, knobs=QUAL10):
     for stage in qf.STAGES:
         reset_counts()
         t0 = time.perf_counter()
-        with environ(**{"QF_STAGE": stage, "QF_WORKDIR": workdir,
-                        "QF_OUT": None, "QF_TINY": None, "QF_RESUME": None,
-                        "QF_TOWER_RESUME": None, **knobs}):
+        with mock.patch.dict(os.environ, {"QF_STAGE": stage,
+                                          "QF_WORKDIR": workdir, **knobs}):
+            for k in ("QF_OUT", "QF_TINY", "QF_RESUME", "QF_TOWER_RESUME"):
+                os.environ.pop(k, None)
             out = qf.main(["--device", str(dev)])
         synchronize(dev)
         secs[f"{stage}_s"] = time.perf_counter() - t0
@@ -3164,7 +3154,7 @@ def bench_phase(cfg, dev, ndoc=None):
     """10b: ``mevi_tpu_torch.bench``'s random-weight pipeline, bf16, over
     ``ndoc`` (default all) rows; its line, then one timed batch's pool
     against the pool with the bucket stage recomputed by the plain v3.
-    Returns the v3 launches of the run."""
+    Returns the v3 launches of the served path."""
     from mevi_tpu_torch import bench
     keep, extras = {}, {}
     reset_counts()
@@ -3173,7 +3163,10 @@ def bench_phase(cfg, dev, ndoc=None):
     n = read_counts()
     line = bench.result_line(qps, base, extras)
     check_bench_line("10b", line, trained=False, on_card=dev.type == "cuda")
-    if n["v3"] == 0 or n["v3"] != line["bucket_launches"]["v3"]:
+    # the wrapper's count holds the kernel check's one launch besides the
+    # served path's, which the line counts
+    served = line["bucket_launches"]["v3"]
+    if served == 0 or n["v3"] != served + (dev.type == "cuda"):
         raise AssertionError(f"10b: launches {n}, line "
                              f"{line['bucket_launches']}")
     server = keep.pop("server")
@@ -3184,37 +3177,45 @@ def bench_phase(cfg, dev, ndoc=None):
     err, n_sep = compare_pools("10b_plain", kern,
                                pool_with_plain(server, ov, q_rep, B))
     emit(phase="10b_plain_check", max_abs_pool_err=err, ids_compared=n_sep)
-    return n["v3"]
+    return served
 
 
-def tax_phase(cfg, dev, workdir, ndoc=None, extra=()):
-    """10c: ``scripts.int8_tax`` over 10a's bundle (the trained pipeline)
-    at ``ndoc`` (default all) rows, bf16 then int8, each bench run a
-    process of its own.  Gate: the trained coarse keys equal between the
-    two (the corpus dtype does not enter the coarse stage).  Returns the
-    v3 launches of the bf16 and of the int8 run."""
+def tax_phase(cfg, dev, workdir, ndoc=None, extra=(), tag="10c",
+              fine_signal=False):
+    """10c / 10d: ``scripts.int8_tax`` over 10a's bundle (the trained
+    pipeline) at ``ndoc`` (default all) rows, bf16 then int8, each bench
+    run a process of its own.  Gates: the trained coarse keys equal
+    between the two (the corpus dtype does not enter the coarse stage),
+    the trained fine recall@100 within ``FINE_TAX_TOL``, and with
+    ``fine_signal`` above 0 in both.  Returns the v3 launches of the bf16
+    and of the int8 run."""
     from mevi_tpu_torch.scripts import int8_tax
     t0 = time.perf_counter()
     art, lines = int8_tax.run(ndoc or cfg["ndocs"], str(dev), ckpt=workdir,
                               extra=extra)
     for dt, line in lines.items():
-        check_bench_line(f"10c_{dt}", line, trained=True,
+        check_bench_line(f"{tag}_{dt}", line, trained=True,
                          on_card=dev.type == "cuda")
     for k in ("trained_coarse_hit@1", "trained_coarse_hit@10"):
         if lines["bf16"][k] != lines["int8"][k]:
-            raise AssertionError(f"10c: {k} bf16 {lines['bf16'][k]} != int8 "
-                                 f"{lines['int8'][k]}")
+            raise AssertionError(f"{tag}: {k} bf16 {lines['bf16'][k]} != "
+                                 f"int8 {lines['int8'][k]}")
+    fine = {dt: line["trained_fine_recall@100"] for dt, line in lines.items()}
+    if abs(fine["int8"] - fine["bf16"]) > FINE_TAX_TOL or \
+            (fine_signal and min(fine.values()) <= 0):
+        raise AssertionError(f"{tag}: trained fine recall@100 {fine}")
     n = {dt: line["bucket_launches"]["v3"] for dt, line in lines.items()}
     if not all(n.values()):
-        raise AssertionError(f"10c: v3 launches {n}")
-    emit(phase="10c_int8_tax", seconds=time.perf_counter() - t0,
+        raise AssertionError(f"{tag}: v3 launches {n}")
+    emit(phase=f"{tag}_int8_tax", seconds=time.perf_counter() - t0,
          artifact=art)
     return n["bf16"], n["int8"]
 
 
 def scripts_phase(cfg, dev):
-    """Phase 10 (10a, 10b, 10c); the bundle lives in a temporary
+    """Phase 10 (10a, 10b, 10c, 10d); the bundle lives in a temporary
     directory removed at the end.  Returns the v3 launches by path."""
+    from mevi_tpu_torch.data import synth
     t_phase = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_quality_")
     try:
@@ -3227,11 +3228,19 @@ def scripts_phase(cfg, dev):
         gc.collect()
         torch.cuda.empty_cache()
         n_c, n_c8 = tax_phase(cfg, dev, workdir)
+        # the bundle's own corpus, whose leaves the cap truncates far less
+        # than 8,841,823 rows': the trained fine keys carry a signal there
+        ndoc_own = synth.load_spec(osp.join(workdir, "spec.json")).ndoc
+        n_d, n_d8 = tax_phase(cfg, dev, workdir, ndoc=ndoc_own,
+                              extra=("--nbatch", "5"), tag="10d",
+                              fine_signal=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit(phase="10_total", seconds=time.perf_counter() - t_phase)
-    return {"10a_quality_eval": n_a, "10b_bench_random": n_b,
-            "10c_bench_trained": n_c}, {"10c_bench_trained_int8": n_c8}
+    return ({"10a_quality_eval": n_a, "10b_bench_random": n_b,
+             "10c_bench_trained": n_c, "10d_bench_trained_own": n_d},
+            {"10c_bench_trained_int8": n_c8,
+             "10d_bench_trained_own_int8": n_d8})
 
 
 def serve_phases(cfg, seed, dev, phase1_only=False):

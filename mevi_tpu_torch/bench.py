@@ -78,8 +78,8 @@ the JAX line (``BENCH_r05.json`` ``parsed``), measured here on the card:
   ``torch.profiler`` trace, a call) and their share of the H100's bf16
   dense peak from ``flops_of``;
 * ``bucket_launches`` (the port's addition): launches of each bucket
-  kernel wrapper in this run, the comparison of the kernel check left
-  out.
+  kernel wrapper in this run after the kernel check (whose one launch
+  of the served kernel is a comparison, not the served path).
 
 Not carried over from the JAX script: its corpus-size ladder, backend
 probe and result sidecars.  A run that fails exits non-zero and prints
@@ -191,7 +191,6 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
             f"{ckpt}: incomplete bundle (needs spec.json, tower_params.npz "
             f"and ckpts/nci/leaderboard.json)")
     counters = {"v3": Bk.bucket_scores_v3, "fused": Bk.bucket_scores_fused}
-    launches0 = {k: f.launches for k, f in counters.items()}
 
     if ckpt:
         spec = synth.load_spec(osp.join(ckpt, "spec.json"))
@@ -307,10 +306,7 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
             host.choice(cidx_all, size=g).astype(np.int32)).to(dev)
         q_s = torch.from_numpy(host.normal(size=(g, D)).astype(
             np.float32)).to(dev).to(server.q_dt)
-        served = counters[bucket_kernel]
-        n_before = served.launches
         k_s, k_r = server.bucket(cidx_s, q_s)
-        served.launches = n_before      # a comparison, not the served path
         o_s, o_r = Bk.bucket_scores_fused_plain(semb, server.offsets_d,
                                                 cidx_s, q_s, CAP)
         if not torch.equal(k_r, o_r):
@@ -319,6 +315,9 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
         torch.testing.assert_close(k_s, o_s, rtol=1e-4, atol=1e-3)
         extras["kernel_matches_oracle"] = True
         log("bucket kernel == plain version on a device sample: OK")
+    # the served path's launches are counted from here: the check's one
+    # launch above is a comparison
+    launches0 = {k: f.launches for k, f in counters.items()}
 
     # ---- recall against exact MIPS (cluster + cap truncation) -------------
     # queries are perturbed documents; two coarse stand-ins: a codebook

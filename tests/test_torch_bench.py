@@ -12,7 +12,9 @@ and ``mevi_tpu_torch.scripts.int8_tax`` at tiny size.
 * int8_tax: both recall sets and their deltas, the coarse keys equal
   between the dtypes.
 
-Both ``bench.run``s run in this process (one JAX start-up for all)."""
+Both ``bench.run``s run in this process (one JAX start-up for all),
+with both packages' synth caches in a directory of the module's own
+(``private_synth_caches``, imported so that it applies here too)."""
 
 import json
 import os
@@ -23,7 +25,8 @@ from unittest import mock
 import pytest
 import torch
 
-from test_torch_quality_full import jax_bundle, port_bundle
+from test_torch_quality_full import (jax_bundle, port_bundle,  # noqa: F401
+                                     private_synth_caches)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "ndoc", "batch", "cap",
@@ -98,7 +101,7 @@ def random_runs(tmp_path_factory):
     ref = {}
     with mock.patch.dict(os.environ, dict(env, BENCH_CKPT="")):
         jbench.run(ndoc, ref)
-    # the fit the JAX run cached: its codebooks
+    # the fit the JAX run cached in this module's cache: its codebooks
     spec = jsynth.SynthSpec(ndoc=ndoc, d=64, kary=32, levels=4, seed=0,
                             qlen=32)
     tab = jsynth.make_tables(spec)

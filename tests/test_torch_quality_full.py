@@ -18,7 +18,10 @@ geometry (``QF_TINY``, 400 documents).
   the test): discrete QUALITY keys equal, float keys within 1e-4, the
   served arrays equal;
 * the bundle check: the tiny bundle is complete, an incomplete one
-  raises."""
+  raises.
+
+Both packages' synth caches live in a directory of the module's own
+(``private_synth_caches``), the JAX script's included."""
 
 import importlib.util
 import json
@@ -32,6 +35,8 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+
+from torch_synth_cache_jax import jax_synth_cache
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY_ENV = {
@@ -49,10 +54,25 @@ ROUNDING_RESIDUAL = 1e-6
 TIMING_KEYS = ("serve_s_for_n_dev",)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def private_synth_caches(tmp_path_factory):
+    """Both packages' synth caches under a directory of the module's own:
+    the JAX default is one fixed directory that every checkout on the
+    host shares, written by non-atomic saves."""
+    from mevi_tpu_torch.data import synth
+    base = tmp_path_factory.mktemp("synth_cache")
+    with jax_synth_cache(str(base / "jax")), \
+            mock.patch.object(synth, "default_cache_base",
+                              lambda: str(base / "port")):
+        yield base
+
+
 def jax_bundle(tmp_path_factory, stages):
     """The JAX script's tiny run (the stages given), in a process of its
-    own; returns its workdir."""
+    own with its synth cache in a directory of its own; returns its
+    workdir."""
     workdir = str(tmp_path_factory.mktemp("jax_qf"))
+    cache = str(tmp_path_factory.mktemp("jax_qf_synth"))
     env = dict(os.environ, **TINY_ENV)
     env.update({"QF_FORCE_CPU": "1", "QF_STAGE": stages,
                 "QF_WORKDIR": workdir, "QF_SCAN": "4",
@@ -61,7 +81,8 @@ def jax_bundle(tmp_path_factory, stages):
                 "JAX_COMPILATION_CACHE_DIR": osp.join(workdir, "jax_cache")})
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
-        [sys.executable, osp.join(REPO, "scripts", "quality_full.py")],
+        [sys.executable, osp.join(REPO, "tests", "torch_synth_cache_jax.py"),
+         cache, osp.join(REPO, "scripts", "quality_full.py")],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return workdir
