@@ -7,7 +7,8 @@ corpus.
 
     python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only |
                                      --phase7-only | --phase8-only |
-                                     --phase9-only | --phase10-only]
+                                     --phase9-only | --phase10-only |
+                                     --phase11-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
 result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
@@ -17,12 +18,14 @@ phase 7, with no result line; ``--phase8-only`` builds the kernels and
 runs phase 8 alone, with no result line; ``--phase9-only`` runs phase
 6a's corpus build, phase 7, then phase 9, with no result line;
 ``--phase10-only`` builds the kernels and runs phase 10 alone, with no
-result line.
+result line; ``--phase11-only`` builds the kernels, runs 10a (the bundle
+phase 11 reads), then phase 11, with no result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
      versions at serving geometry (G = 512 x 10 buckets, cap 512, d 768),
-     bf16 queries over bf16 and int8 corpora, with kernel / plain /
+     bf16 queries over bf16 and int8 corpora, and float32 queries over a
+     float32 copy (the instance phase 11a serves), with kernel / plain /
      yardstick times (CUDA events) and their bytes, achieved rate and
      bounds; then ``scripts.profile_bucket.profile`` (the v2 path) over
      the int8 corpus;
@@ -171,13 +174,36 @@ Phases:
      where the cap truncates few leaves, its trained fine
      recall@100 also above 0 in both.  Every bench line is printed
      whole, with every key of the JAX line, recalls under their
-     coverage bound.
+     coverage bound;
+ 11. the rest of the scripts, over 10a's bundle (kept until the end):
+     (a) ``scripts.quality_full``'s ``sharded`` stage: the bundle in
+     float32 served through ``ShardedBucketServer`` in eight ranks on
+     the card (data 2 x corpus 4, the JAX stage's mesh; gloo; the v3
+     kernel over a float32 corpus at ``align=1``) and through the
+     single-device path in the ranks' row layout; gates:
+     beam codes equal, canonical metrics equal, top-100 overlap above
+     0.99; (b) ``scripts.data_ceiling`` over its dev set; (c)
+     ``scripts.scaling_curve`` at 1,000,000, 2,210,455, 4,420,911 and
+     8,841,823 rows, int8, a bench process a size with 2 timed batches
+     (``SCALE11``; the largest size is 10c's int8 line, read as its
+     sidecar), every line whole and under its coverage bound; (d)
+     ``scripts.nq_scale_demo`` at 21,015,324 rows and d 768: the mesh
+     stage in a process of its own (eight ranks, each making its 4.03
+     GB int8 shard on the card), its pool against the plain v3 over the
+     same rows (1e-3), then stream (a 16.1 GB host memmap in a
+     temporary directory) and adc (RQ 8 x 32, 5.4 GB one-hot); (e)
+     ``scripts.quality_demo`` at its device widths (200,000 x 768, NCI
+     6 + 3 at d 512, batch 256) with ``DEMO11`` steps of its 4,000; (f)
+     the coarse stage's instruments at the serving shapes:
+     ``profile_beam`` (with its traced breakdown), ``profile_step``,
+     ``beam_trace`` (device ms by kernel category, share of the bf16
+     peak) and ``trace_beam_only``.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
-with the int8 run under ``int8``; phase 9's launches summed over its
-ranks; phase 10's under ``launches_by_path``, bf16 and int8); the last
-line is
+with the int8 run under ``int8`` and the float32 run under ``f32``;
+phase 9's and 11's launches summed over their ranks; phases 10's and
+11's under ``launches_by_path``, bf16, int8 and f32); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a card or if
 any phase fails.
 """
@@ -3035,11 +3061,11 @@ def trees_equal(tag, a, b):
 # 10a's cuts, of depth only (the model, tower and RQ widths are the
 # JAX script's full ones): 153,600 documents of 1,000,000, one utterance
 # a document of 4 and one epoch of 8 (300 steps at batch 512, phase 7's
-# size), 800 tower steps of 24,000 (the tower's dev exact-MIPS
-# recall@100 reaches ~0.05, against 0.002 after 200), 512 dev queries of
-# 2,048
+# size), 400 tower steps of 24,000 (cut from 800 for the time limit
+# when phase 11 came; 800 steps reached a dev exact-MIPS recall@100 of
+# ~0.05, 200 ~0.002), 512 dev queries of 2,048
 QUAL10 = dict(QF_NDOC="153600", QF_UTT="1", QF_EPOCHS="1", QF_BATCH="512",
-              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="800",
+              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="400",
               QF_TOWER_SCAN="8", QF_TOWER_PROBE="200")
 # 10c / 10d: the largest |int8 - bf16| of the trained fine recall@100, 10
 # of 512 queries: int8 rounding moves a score by ~4e-4 (an error of up to
@@ -3181,14 +3207,14 @@ def bench_phase(cfg, dev, ndoc=None):
 
 
 def tax_phase(cfg, dev, workdir, ndoc=None, extra=(), tag="10c",
-              fine_signal=False):
+              fine_signal=False, lines_out=None):
     """10c / 10d: ``scripts.int8_tax`` over 10a's bundle (the trained
     pipeline) at ``ndoc`` (default all) rows, bf16 then int8, each bench
     run a process of its own.  Gates: the trained coarse keys equal
     between the two (the corpus dtype does not enter the coarse stage),
     the trained fine recall@100 within ``FINE_TAX_TOL``, and with
     ``fine_signal`` above 0 in both.  Returns the v3 launches of the bf16
-    and of the int8 run."""
+    and of the int8 run; ``lines_out`` receives both lines by dtype."""
     from mevi_tpu_torch.scripts import int8_tax
     t0 = time.perf_counter()
     art, lines = int8_tax.run(ndoc or cfg["ndocs"], str(dev), ckpt=workdir,
@@ -3207,35 +3233,36 @@ def tax_phase(cfg, dev, workdir, ndoc=None, extra=(), tag="10c",
     n = {dt: line["bucket_launches"]["v3"] for dt, line in lines.items()}
     if not all(n.values()):
         raise AssertionError(f"{tag}: v3 launches {n}")
+    if lines_out is not None:
+        lines_out.update(lines)
     emit(phase=f"{tag}_int8_tax", seconds=time.perf_counter() - t0,
          artifact=art)
     return n["bf16"], n["int8"]
 
 
-def scripts_phase(cfg, dev):
-    """Phase 10 (10a, 10b, 10c, 10d); the bundle lives in a temporary
-    directory removed at the end.  Returns the v3 launches by path."""
+def scripts_phase(cfg, dev, workdir):
+    """Phase 10 (10a, 10b, 10c, 10d); the bundle is written to
+    ``workdir``, which phase 11 reads and the caller removes.  Returns
+    the v3 launches by path."""
     from mevi_tpu_torch.data import synth
     t_phase = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_quality_")
-    try:
-        n_a, _ = quality_phase(dev, workdir)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        n_b = bench_phase(cfg, dev)
-        emit(phase="10b_seconds", seconds=time.perf_counter() - t0)
-        gc.collect()
-        torch.cuda.empty_cache()
-        n_c, n_c8 = tax_phase(cfg, dev, workdir)
-        # the bundle's own corpus, whose leaves the cap truncates far less
-        # than 8,841,823 rows': the trained fine keys carry a signal there
-        ndoc_own = synth.load_spec(osp.join(workdir, "spec.json")).ndoc
-        n_d, n_d8 = tax_phase(cfg, dev, workdir, ndoc=ndoc_own,
-                              extra=("--nbatch", "5"), tag="10d",
-                              fine_signal=True)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    n_a, _ = quality_phase(dev, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_b = bench_phase(cfg, dev)
+    emit(phase="10b_seconds", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines_c = {}
+    n_c, n_c8 = tax_phase(cfg, dev, workdir, lines_out=lines_c)
+    seed_scaling_row(workdir, lines_c[SCALE11["dtype"]])
+    # the bundle's own corpus, whose leaves the cap truncates far less
+    # than 8,841,823 rows': the trained fine keys carry a signal there
+    ndoc_own = synth.load_spec(osp.join(workdir, "spec.json")).ndoc
+    n_d, n_d8 = tax_phase(cfg, dev, workdir, ndoc=ndoc_own,
+                          extra=("--nbatch", "5"), tag="10d",
+                          fine_signal=True)
     emit(phase="10_total", seconds=time.perf_counter() - t_phase)
     return ({"10a_quality_eval": n_a, "10b_bench_random": n_b,
              "10c_bench_trained": n_c, "10d_bench_trained_own": n_d},
@@ -3243,10 +3270,225 @@ def scripts_phase(cfg, dev):
              "10d_bench_trained_own_int8": n_d8})
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the scripts (sharded parity, ceiling, scaling,
+# NQ scale, the quality demo, the coarse-stage profilers)
+# ---------------------------------------------------------------------------
+
+# the time limit's cuts, of depth only: 11c: the JAX curve's four sizes,
+# int8, each a bench process with 2 timed batches of its 20, the largest
+# read from 10c's int8 line (the same bench, bundle, size and dtype);
+# 11d: the true NQ rows at d 768, not cut; 11e: 300 DEMO_STEPS of 4,000
+SCALE11 = dict(sizes=(1_000_000, 2_210_455, 4_420_911, 8_841_823),
+               dtype="int8", nbatch=2, timeout=900)
+NQ11 = dict(ndoc=21_015_324, d=768, plain_atol=1e-3, timeout=900)
+DEMO11 = dict(steps=300)
+
+
+def sharded_stage_phase(dev, workdir):
+    """11a: ``quality_full``'s ``sharded`` stage over 10a's bundle at full
+    width (float32 NCI and tower, the v3 kernel over a float32 corpus at
+    ``align=1`` in eight spawned ranks).  Gates: beam codes
+    equal, the canonical metrics equal, top-100 overlap above 0.99, v3
+    launched.  Returns the ranks' v3 launches."""
+    from mevi_tpu_torch.scripts import quality_full as qf
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"QF_STAGE": "sharded",
+                                      "QF_WORKDIR": workdir}):
+        for k in ("QF_OUT", "QF_TINY", "QF_SHARD_DUMP"):
+            os.environ.pop(k, None)
+        out = qf.main(["--device", str(dev)])
+    if out["beam_codes_equal"] is not True or out["sharded"] != \
+            out["single"] or not out["top100_overlap"] > 0.99:
+        raise AssertionError(f"11a: parity {out}")
+    if out["bucket_launches"] == 0:
+        raise AssertionError("11a: the ranks never launched v3")
+    emit(phase="11a_sharded_parity", seconds=time.perf_counter() - t0, **out)
+    return out["bucket_launches"]
+
+
+def ceiling_phase(dev, workdir):
+    """11b: ``data_ceiling`` over 10a's bundle (its dev set)."""
+    from mevi_tpu_torch.scripts import data_ceiling
+    t0 = time.perf_counter()
+    rep = data_ceiling.report(workdir, device=dev)
+    for k in ("bayes_recall@100", "oracle_tower_recall@100"):
+        if not 0.0 <= rep[k] <= 1.0:
+            raise AssertionError(f"11b: {k} = {rep[k]}")
+    emit(phase="11b_data_ceiling", seconds=time.perf_counter() - t0, **rep)
+
+
+def seed_scaling_row(workdir, line):
+    """10c's int8 bench line as 11c's sidecar at its size: the same bench
+    over the same bundle, size and dtype (with 20 timed batches), which
+    the curve then reads instead of running that size again."""
+    from mevi_tpu_torch.scripts import scaling_curve as sc
+    side = osp.join(workdir, "scaling_stages")
+    os.makedirs(side, exist_ok=True)
+    row = {k: line[k] for k in sc.KEEP if k in line}
+    row["secs"] = None
+    with open(osp.join(side, sc.tag_of(line["ndoc"], line["corpus_dtype"],
+                                       None) + ".json"), "w") as fw:
+        fw.write(json.dumps(row) + "\n")
+
+
+def scaling_phase(cfg, dev, workdir):
+    """11c: ``scaling_curve`` over 10a's bundle at ``SCALE11``'s sizes,
+    int8, one bench process a size; a size whose sidecar 10c wrote
+    (:func:`seed_scaling_row`) is read from it.  Gates: every row holds
+    ``KEEP``, each whole bench line run here passes ``check_bench_line``
+    (recalls under their coverage bound).  Returns the v3 launches by
+    size run."""
+    from mevi_tpu_torch.scripts import scaling_curve as sc
+    t0 = time.perf_counter()
+    side = osp.join(workdir, "scaling_stages")
+    curve, lines = sc.run(SCALE11["sizes"], SCALE11["dtype"], str(dev),
+                          ckpt=workdir, side_dir=side,
+                          timeout=SCALE11["timeout"],
+                          extra=("--nbatch", str(SCALE11["nbatch"])))
+    for row in curve["curve"]:
+        missing = [k for k in sc.KEEP if k not in row]
+        if missing:
+            raise AssertionError(f"11c: row {row.get('ndoc')} lacks "
+                                 f"{missing}")
+    n = {}
+    for tag, line in lines.items():
+        check_bench_line(f"11c_{tag}", line, trained=True,
+                         on_card=dev.type == "cuda")
+        n[f"11c_scaling_{line['ndoc']}_int8"] = line["bucket_launches"]["v3"]
+    if len(curve["curve"]) != len(SCALE11["sizes"]) or not n or \
+            not all(n.values()):
+        raise AssertionError(f"11c: v3 launches {n}")
+    emit(phase="11c_scaling_curve", seconds=time.perf_counter() - t0,
+         curve=curve)
+    return n
+
+
+def nq_phase(dev):
+    """11d: ``nq_scale_demo`` at 21,015,324 rows and d 768: the mesh stage
+    in a process of its own (ranks sharing the card; the parent's fill
+    would stay allocated after IPC ranks exit), then stream and adc in
+    this one.  Gates: the mesh pool within 1e-3 of the plain v3 over the
+    same rows, the rows and width, v3 launched.  Returns the mesh
+    stage's v3 launches."""
+    from mevi_tpu_torch.scripts import nq_scale_demo as nq
+    from mevi_tpu_torch.scripts.int8_tax import PACKAGE_ROOT
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_nq_")
+    env = dict(os.environ, NQ_NDOC=str(NQ11["ndoc"]), NQ_MESH_D=str(NQ11["d"]),
+               NQ_D=str(NQ11["d"]), NQ_STAGE_DIR=work,
+               NQ_OUT=osp.join(work, "nq.json"))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [PACKAGE_ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "mevi_tpu_torch.scripts.nq_scale_demo",
+             "--device", str(dev)], env=dict(env, NQ_STAGE="mesh"),
+            stdout=subprocess.PIPE, timeout=NQ11["timeout"])
+        if r.returncode != 0:
+            raise AssertionError(f"11d: mesh stage rc={r.returncode}")
+        mesh_s = time.perf_counter() - t0
+        with mock.patch.dict(os.environ, {k: env[k] for k in (
+                "NQ_NDOC", "NQ_MESH_D", "NQ_D")}):
+            for k in ("NQ_ADC_TAG", "NQ_ADC_LEVELS", "NQ_ADC_KARY"):
+                os.environ.pop(k, None)
+            out = nq.run_stages(["stream", "adc"], dev, work,
+                                osp.join(work, "nq.json"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if out["mesh_pool_max_abs_err_vs_plain"] > NQ11["plain_atol"]:
+        raise AssertionError(f"11d: pool vs plain "
+                             f"{out['mesh_pool_max_abs_err_vs_plain']}")
+    for k in ("mesh_server_rows", "mesh_mips_rows", "stream_rows",
+              "adc_rows"):
+        if out[k] != NQ11["ndoc"]:
+            raise AssertionError(f"11d: {k} = {out[k]}")
+    if out["mesh_d"] != NQ11["d"] or out["mesh_v3_launches"] == 0:
+        raise AssertionError(f"11d: mesh d {out['mesh_d']}, launches "
+                             f"{out['mesh_v3_launches']}")
+    emit(phase="11d_nq_scale", seconds=time.perf_counter() - t0,
+         mesh_process_s=mesh_s, **out)
+    return out["mesh_v3_launches"]
+
+
+def demo_phase(dev):
+    """11e: ``quality_demo`` at its device widths, ``DEMO_STEPS`` cut.
+    Gates: finite losses, the loss down, hits in [0, 1]."""
+    from mevi_tpu_torch.scripts import quality_demo
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"DEMO_STEPS": str(DEMO11["steps"])}):
+        for k in ("DEMO_NDOC", "DEMO_NTRAIN"):
+            os.environ.pop(k, None)
+        out = quality_demo.run(dev)
+    if not (np.isfinite(out["loss_first"]) and np.isfinite(out["loss_last"])
+            and out["loss_last"] < out["loss_first"]):
+        raise AssertionError(f"11e: losses {out}")
+    for k in ("coarse_hit@1", "coarse_hit@10", "fine_recall@10"):
+        if not 0.0 <= out[k] <= 1.0:
+            raise AssertionError(f"11e: {k} = {out[k]}")
+    emit(phase="11e_quality_demo", seconds=time.perf_counter() - t0,
+         steps_cut_from=4000, **out)
+
+
+def profilers_phase(dev):
+    """11f: the coarse stage's instruments at the serving shapes:
+    ``profile_beam`` (with the traced breakdown), ``profile_step``,
+    ``beam_trace`` and ``trace_beam_only``.  Gates: every stage timed,
+    the beam's FLOPs and device time positive, the category breakdown
+    summing to the device time."""
+    from mevi_tpu_torch.scripts import (beam_trace, profile_beam,
+                                        profile_step, trace_beam_only)
+    t0 = time.perf_counter()
+    pb = profile_beam.profile(dev, trace=True)
+    emit(phase="11f_profile_beam", **pb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ps = profile_step.profile(dev)
+    emit(phase="11f_profile_step", **ps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bt = beam_trace.trace(dev)
+    cats = sum(bt["trace_breakdown_ms"].values())
+    if not (bt["beam_gflops"] > 0 and bt["beam_device_ms"] > 0
+            and abs(cats - bt["beam_device_ms"]) < 1e-6 * max(cats, 1.0)):
+        raise AssertionError(f"11f: beam_trace {bt}")
+    emit(phase="11f_beam_trace", **bt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tb = trace_beam_only.run(dev)
+    emit(phase="11f_trace_beam_only", **tb)
+    for name, row in pb["stages"].items():
+        if not (row["seq_ms"] > 0 and row["pipe_ms"] > 0):
+            raise AssertionError(f"11f: profile_beam {name} {row}")
+    emit(phase="11f_seconds", seconds=time.perf_counter() - t0)
+
+
+def rest_phase(cfg, dev, workdir):
+    """Phase 11 (11a-11f) over 10a's bundle in ``workdir``.  Returns the
+    v3 launches of the float32 path (11a) and of the int8 paths (11c,
+    11d)."""
+    t_phase = time.perf_counter()
+    n_a = sharded_stage_phase(dev, workdir)
+    ceiling_phase(dev, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_c = scaling_phase(cfg, dev, workdir)
+    n_d = nq_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    demo_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profilers_phase(dev)
+    emit(phase="11_total", seconds=time.perf_counter() - t_phase)
+    return ({"11a_sharded_parity_f32": n_a},
+            {**n_c, "11d_nq_mesh_int8": n_d})
+
+
 def serve_phases(cfg, seed, dev, phase1_only=False):
     """Phases 1-4 over the corpus of :func:`make_corpus`.  Returns
-    (phase-1 results, bf16 and int8, launches of each kernel on its
-    path, launches on the int8 paths, evaluation launches, (qtower,
+    (phase-1 results, bf16, int8 and float32, launches of each kernel on
+    its path, launches on the int8 paths, evaluation launches, (qtower,
     nci)), or None after phase 1 with ``phase1_only``; the corpus, its
     int8 copy and the servers are freed on return."""
     from mevi_tpu_torch.eval.searcher import FineIndex
@@ -3278,6 +3520,13 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     q8 = (q.float() / scale).to(torch.bfloat16)
     p1_i8 = check_kernel("int8", semb_i8, off_d, cidx, q8, cfg["cap"], dev,
                          cfg["kernel_reps"])
+    # a float32 copy with float32 queries: the instance the sharded
+    # stage of phase 11 serves (27 GB, freed at once)
+    semb32 = semb.float()
+    p1_f32 = check_kernel("f32", semb32, off_d, cidx, q.float(), cfg["cap"],
+                          dev, cfg["kernel_reps"])
+    del semb32
+    torch.cuda.empty_cache()
     # the v2 kernel's path: the A/B entry point, over the int8 corpus
     reset_counts()
     prof = profile_bucket.profile(semb_i8, off_d, cidx, q8, cfg["cap"],
@@ -3375,11 +3624,12 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
              "raw": n_raw}
     int8_paths = {"v3": {"3_int8": n_int8, "4c_device_rerank": n_4c},
                   "v2": {"1_profile_bucket": n_profile["v2"]}}
-    return p1, p1_i8, paths, int8_paths, n_eval, (qtower, nci)
+    return p1, p1_i8, p1_f32, paths, int8_paths, n_eval, (qtower, nci)
 
 
 def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
-        phase8_only=False, phase9_only=False, phase10_only=False):
+        phase8_only=False, phase9_only=False, phase10_only=False,
+        phase11_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -3404,25 +3654,38 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
              pipeline_v3_launches=out)
         print(card_line(), flush=True)
         return 0
-    if phase10_only:
-        n10, n10_int8 = scripts_phase(cfg, dev)
-        emit(total_s=time.perf_counter() - t_start, scripts_v3_launches=n10,
-             scripts_v3_int8_launches=n10_int8)
-        print(card_line(), flush=True)
-        return 0
-    nci_path = osp.join(tempfile.mkdtemp(prefix="chip_smoke_nci_"),
-                        "trained_nci.pt")
+    # phase 10's bundle, read by phase 11, removed at the end
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_quality_")
     try:
-        return run_phases(cfg, seed, dev, t_start, nci_path, phase6_only,
-                          phase7_only, phase9_only)
+        if phase10_only:
+            n10, n10_int8 = scripts_phase(cfg, dev, workdir)
+            emit(total_s=time.perf_counter() - t_start,
+                 scripts_v3_launches=n10, scripts_v3_int8_launches=n10_int8)
+            print(card_line(), flush=True)
+            return 0
+        if phase11_only:
+            quality_phase(dev, workdir)
+            n11, n11_int8 = rest_phase(cfg, dev, workdir)
+            emit(total_s=time.perf_counter() - t_start,
+                 rest_v3_f32_launches=n11, rest_v3_int8_launches=n11_int8)
+            print(card_line(), flush=True)
+            return 0
+        nci_path = osp.join(tempfile.mkdtemp(prefix="chip_smoke_nci_"),
+                            "trained_nci.pt")
+        try:
+            return run_phases(cfg, seed, dev, t_start, nci_path, workdir,
+                              phase6_only, phase7_only, phase9_only)
+        finally:
+            shutil.rmtree(osp.dirname(nci_path), ignore_errors=True)
     finally:
-        shutil.rmtree(osp.dirname(nci_path), ignore_errors=True)
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
-def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
-               phase9_only):
-    """Phases 2-9 (or 6, 7, or 6a + 7 + 9 alone); the trained NCI of
-    phase 7 passes to phase 9 through the file ``nci_path``."""
+def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
+               phase7_only, phase9_only):
+    """Phases 2-11 (or 6, 7, or 6a + 7 + 9 alone); the trained NCI of
+    phase 7 passes to phase 9 through the file ``nci_path``, phase 10's
+    bundle to phase 11 through ``workdir``."""
     if phase6_only or phase7_only or phase9_only:
         qtower, nci = build_models(cfg, dev, seed)
         corpus, secs = synth_corpus(cfg, seed, dev)
@@ -3442,8 +3705,8 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
         emit(total_s=time.perf_counter() - t_start, **out)
         print(card_line(), flush=True)
         return 0
-    p1, p1_i8, paths, int8_paths, n_eval, models = serve_phases(cfg, seed,
-                                                                dev)
+    p1, p1_i8, p1_f32, paths, int8_paths, n_eval, models = serve_phases(
+        cfg, seed, dev)
     gc.collect()
     torch.cuda.empty_cache()
     n_build = build_phase(cfg, seed, dev, *models)
@@ -3469,7 +3732,10 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
     del corpus
     gc.collect()
     torch.cuda.empty_cache()
-    n10, n10_int8 = scripts_phase(cfg, dev)
+    n10, n10_int8 = scripts_phase(cfg, dev, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n11, n11_int8 = rest_phase(cfg, dev, workdir)
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -3486,7 +3752,8 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
         if mode == "v3":
             entry["launches"] += n_build + n_synth + n_trained + sum(
-                n_pipe.values()) + n9 + n9c + sum(n10.values())
+                n_pipe.values()) + n9 + n9c + sum(n10.values()) + sum(
+                n11.values())
             # phase 9: summed over the ranks
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build,
@@ -3494,7 +3761,7 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
                                          "7_trained_serve": n_trained,
                                          **n_pipe, "9_sharded_serve": n9,
                                          "9c_sharded_serve_nccl": n9c,
-                                         **n10}
+                                         **n10, **n11}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
@@ -3505,6 +3772,14 @@ def run_phases(cfg, seed, dev, t_start, nci_path, phase6_only, phase7_only,
             entry["int8"]["launches_by_path"]["9_sharded_serve_int8"] = \
                 n9_int8
             entry["int8"]["launches_by_path"].update(n10_int8)
+            entry["int8"]["launches_by_path"].update(n11_int8)
+        rf = p1_f32[mode]
+        entry["f32"] = {k: rf[k] for k in (
+            "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
+            "max_abs_err", "plain_ms", "yardstick_ms") if k in rf}
+        entry["f32"]["launches_by_path"] = (
+            {"11a_sharded_parity_f32": n11["11a_sharded_parity_f32"]}
+            if mode == "v3" else {})
         kernels.append(entry)
     emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,
          eval_launches=n_eval)
@@ -3537,6 +3812,9 @@ def main(argv=None):
     ap.add_argument("--phase10-only", action="store_true",
                     help="build the kernels, run phase 10 (quality_full, "
                          "bench, int8_tax) and stop")
+    ap.add_argument("--phase11-only", action="store_true",
+                    help="build the kernels, run 10a (the bundle), then "
+                         "phase 11 (the rest of the scripts) and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3544,7 +3822,7 @@ def main(argv=None):
         return 2
     return run(FULL, args.seed, args.phase1_only, args.phase6_only,
                args.phase7_only, args.phase8_only, args.phase9_only,
-               args.phase10_only)
+               args.phase10_only, args.phase11_only)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,8 @@ evaluated through ``BucketServer`` (the v3 bucket kernel, ``align=8``).
 
     python -m mevi_tpu_torch.scripts.quality_full [--device cuda|cpu]
 
-Stages (``QF_STAGE=data|train|tower|eval|all``, comma-separated; the
-JAX script's ``sharded`` stage is not ported):
+Stages (``QF_STAGE=data|train|tower|eval|sharded|all``, comma-separated;
+``all`` is the first four, as in the JAX script):
   data   the corpus spec, the RQ fit and codes, ``prefix_shift.npz``, the
          train utterance token memmaps with their row-aligned codes, and a
          dev utterance set;
@@ -21,7 +21,17 @@ JAX script's ``sharded`` stage is not ported):
   eval   dev queries served through ``BucketServer`` with the trained
          tower and NCI: coarse hits, fine recalls, MRR, the ANN /
          ensemble / RRF legs, beam-major order, the oracle tower and the
-         Bayes bounds, written as a QUALITY json (the JAX json's keys).
+         Bayes bounds, written as a QUALITY json (the JAX json's keys);
+  sharded  the trained bundle in float32 served through
+         ``ShardedBucketServer`` in spawned ranks (``parallel.mesh.
+         launch_local``, gloo; on the card every rank shares it) on a
+         data 2 x corpus 4 mesh, and through the single-device path
+         (``nci_beam_search_incremental``, ``first_token_rep``,
+         ``eval.searcher.fine_rerank``): beam codes equal, the canonical
+         (-score, id) metrics equal and the top-100 overlap above 0.99,
+         written as ``SHARDED_PARITY.json`` (the JAX keys, and the
+         ranks' v3 launches as ``bucket_launches``).  The JAX
+         stage's XLA flags for its virtual CPU mesh have no counterpart.
 
 Host draws come from numpy generators with the JAX script's seeds,
 consumed in its order, so the same spec gives the same files.
@@ -35,8 +45,8 @@ the repository), ``QF_OUT``, ``QF_TINY`` (CPU geometry), ``QF_NDOC``,
 ``QF_TOWER_LR``, ``QF_TOWER_ALIGN``, ``QF_TOWER_NORM_W``,
 ``QF_TOWER_NPROBE``, ``QF_TOWER_PROBE``, ``QF_TOWER_SAVE_EVERY``,
 ``QF_TOWER_RESUME``, ``QF_CAP``, ``QF_BEAMS``, ``QF_POOL``,
-``QF_EVAL_BATCH``.  Not read: ``QF_SCAN`` (a TPU dispatch knob) and
-``QF_FORCE_CPU`` (``--device cpu`` instead).
+``QF_EVAL_BATCH``, ``QF_SHARD_B``, ``QF_SHARD_DUMP``.  Not read: ``QF_SCAN`` (a TPU dispatch knob) and ``QF_FORCE_CPU``
+(``--device cpu`` instead).
 """
 
 from __future__ import annotations
@@ -296,8 +306,12 @@ class TowerAdamW:
 
     @torch.no_grad()
     def step(self):
+        """One update, in multi-tensor (``_foreach``) ops: a few kernels
+        a step for every parameter, where a loop launches a dozen a
+        parameter."""
         grads = [p.grad for p in self.params]
-        g_norm = torch.sqrt(sum(g.square().sum() for g in grads))
+        g_norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
         # optax: where(g_norm < max_norm, g, g / g_norm * max_norm)
         scale = torch.where(g_norm < self.max_norm, torch.ones_like(g_norm),
                             self.max_norm / g_norm)
@@ -305,12 +319,20 @@ class TowerAdamW:
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = g * scale
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            p.sub_(lr * (upd + self.wd * p))
+        g = torch._foreach_mul(grads, scale)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
+        denom = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(self.mu, c1)
+        torch._foreach_div_(upd, denom)
+        # p - lr * (upd + wd * p)
+        torch._foreach_add_(upd, self.params, alpha=self.wd)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(self.params, upd)
 
 
 def stage_tower(spec, workdir, cfg, device="cuda", init_params=None):
@@ -759,13 +781,198 @@ def stage_eval(spec, workdir, cfg, out_path, device="cuda"):
 
 
 # --------------------------------------------------------------------------
+# sharded
+# --------------------------------------------------------------------------
+
+SHARD_MESH = (2, 4)              # data x corpus, the JAX stage's mesh
+
+
+def float32_cfg(cfg):
+    """``cfg`` with float32 compute in the NCI and the tower: bf16
+    forwards at different batch shapes round apart, and the stage
+    compares the paths, not the rounding."""
+    import dataclasses as dc
+    return dc.replace(cfg, model=dc.replace(cfg.model, dtype="float32"),
+                      encoder=dc.replace(cfg.encoder, dtype="float32"))
+
+
+def sharded_rank(dev, semb, workdir, cfg, offsets, doc_ids, levels, kary,
+                 ids_h, mesh_shape, num_beams, cap, pool):
+    """One rank of the ``sharded`` stage: the bundle's models, this
+    rank's shard of ``semb``, ``ShardedBucketServer`` over its data slice
+    of ``ids_h``, the whole batch gathered.  Every rank returns its v3
+    launches; rank 0 also (scores, doc ids, codes) and the serve
+    seconds."""
+    from ..eval.searcher import FineIndex
+    from ..ops import bucket as B
+    from ..parallel import mesh as PM
+    from ..serve import ShardedBucketServer, gather_batch
+    from .. import synchronize
+    entered = time.time()
+    mesh = PM.make_mesh(*mesh_shape, device=dev)
+    B.bucket_scores_v3.launches = 0
+    nci = load_nci(cfg, dev)
+    tower = load_tower(cfg, osp.join(workdir, "tower_params.npz"), dev)
+    index = FineIndex(torch.from_numpy(offsets).to(dev),
+                      torch.from_numpy(doc_ids).to(dev),
+                      PM.shard_rows(semb, mesh), levels, kary)
+    server = ShardedBucketServer(tower, nci, mesh, index,
+                                 num_beams=num_beams, cap=cap, pool=pool)
+    ids = torch.from_numpy(PM.data_slice(ids_h, mesh)).to(dev)
+    synchronize(dev)
+    setup_s = time.time() - entered
+    t0 = time.perf_counter()
+    scores, dids, codes, _ = gather_batch(
+        server(ids, torch.ones_like(ids)), mesh)
+    out = tuple(t.cpu().numpy() for t in (scores, dids, codes))
+    seconds = time.perf_counter() - t0
+    launches = B.bucket_scores_v3.launches
+    if mesh.rank:
+        return {"launches": launches}
+    return {"launches": launches, "out": out, "seconds": seconds,
+            "entered": entered, "setup_s": setup_s}
+
+
+def canonical_top100(ids, scores):
+    """(B, k) ids ordered by (-score, id), the first 100, -1 padded: the
+    two paths give equal (score, id) multisets but may order ties
+    apart."""
+    B = len(ids)
+    out = np.full((B, 100), -1, ids.dtype)
+    for i in range(B):
+        keep = ids[i] >= 0
+        order = np.lexsort((ids[i][keep], -scores[i][keep]))
+        out[i, :min(100, keep.sum())] = ids[i][keep][order][:100]
+    return out
+
+
+def stage_sharded(spec, workdir, cfg, device="cuda"):
+    """Sharded serving of the trained bundle against the single-device
+    path (reference: ``mp.spawn`` NCCL inference, ``MEVI/main.py:
+    289-337``).  The ranks share ``device`` (its first card on CUDA) over
+    gloo; the fine stage runs the v3 kernel over a float32 corpus at
+    ``align=1``.  Writes and returns the ``SHARDED_PARITY.json`` dict;
+    raises if a parity check fails."""
+    from ..data import synth
+    from ..decode.beam import nci_beam_search_incremental
+    from ..eval.searcher import fine_rerank
+    from ..parallel.mesh import launch_local
+    from ..utils.native import build_csr
+
+    dev = resolve_device(device)
+    cfg = float32_cfg(cfg)
+    tab = synth.make_tables(spec)
+    draws = synth.make_draws(spec)
+    codes = np.load(osp.join(workdir, "codes.npy"))
+    offsets, doc_ids = build_csr(codes, spec.kary)
+    CAP = env_int("QF_CAP", 512)
+    POOL = env_int("QF_POOL", 1000)
+    NBEAM = env_int("QF_BEAMS", 10)
+    t0 = time.time()
+    semb = synth.fill_sorted_matrix(spec, tab, draws, doc_ids,
+                                    n_pad_rows=CAP + 8, dtype=torch.float32,
+                                    device=dev)
+    log(f"sorted matrix: {time.time() - t0:.1f}s "
+        f"({semb.numel() * 4 / 2 ** 30:.2f} GiB f32)")
+    B = env_int("QF_SHARD_B", 32)
+    dev_docs = np.load(osp.join(workdir, "dev_docs.npy"))[:B]
+    ids_h = np.load(osp.join(workdir, "dev_tokens.npy"))[:B].astype(np.int32)
+    mesh_shape = SHARD_MESH
+
+    # --- sharded path (corpus rows over the corpus axis, queries over data)
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    backend = "gloo"
+    t_launch = time.time()
+    ranks = launch_local(
+        sharded_rank, mesh_shape[0] * mesh_shape[1], backend, rank_dev,
+        semb, workdir, cfg, offsets, doc_ids, spec.levels, spec.kary, ids_h,
+        mesh_shape, NBEAM, CAP, POOL)
+    s_sh, i_sh, c_sh = ranks[0]["out"]
+    dt_sh = ranks[0]["seconds"]
+    launch_s = time.time() - t_launch
+    log(f"sharded serve {B} queries: {dt_sh:.1f}s (launch {launch_s:.1f}s)")
+
+    # --- single-device path (the same beam function, the same fine math)
+    # in the ranks' row layout (a data slice at a time): the card's
+    # float32 products round apart at other batch sizes (phase 9 of
+    # chip_smoke.py measured it for 64 and 128 rows), which can swap two
+    # nearly tied beams
+    nci = load_nci(cfg, dev)
+    tower = load_tower(cfg, osp.join(workdir, "tower_params.npz"), dev)
+    parts = []
+    with torch.inference_mode():
+        for ids_s in np.split(ids_h, mesh_shape[0]):
+            ids_q = torch.from_numpy(ids_s).to(dev)
+            mask_q = torch.ones_like(ids_q)
+            parts.append((nci_beam_search_incremental(nci, ids_q, mask_q,
+                                                      NBEAM)[0],
+                          tower.first_token_rep(ids_q, mask_q)))
+        codes_1, qemb_1 = (torch.cat(t) for t in zip(*parts))
+        fs_1, fids_1, _ = fine_rerank(
+            qemb_1, codes_1, torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(doc_ids).to(dev), semb, spec.kary, CAP, POOL)
+    fids_1 = fids_1.cpu().numpy()
+    fs_1 = fs_1.float().cpu().numpy()
+    codes_1 = codes_1.cpu().numpy()
+    s_sh = np.asarray(s_sh, np.float32)
+
+    # --- parity ----------------------------------------------------------
+    if not np.array_equal(codes_1, c_sh):
+        raise AssertionError("beam codes diverged across paths")
+
+    def metrics(fids):
+        found = fids[:, :100] == dev_docs[:, None]
+        hit = found.any(1)
+        pos = np.argmax(found, 1)
+        return {"recall@100": round(float(hit.mean()), 4),
+                "mrr@10": round(float(np.where(
+                    hit & (pos < 10), 1.0 / (pos + 1), 0.0).mean()), 4)}
+
+    c_i_sh = canonical_top100(i_sh, s_sh)
+    c_i_1 = canonical_top100(fids_1, fs_1)
+    m_sh, m_1 = metrics(c_i_sh), metrics(c_i_1)
+    if m_sh != m_1 or os.environ.get("QF_SHARD_DUMP"):
+        np.savez(osp.join(workdir, "sharded_debug.npz"),
+                 i_sh=i_sh, s_sh=s_sh, fids_1=fids_1, fs_1=fs_1,
+                 dev_docs=dev_docs, c_i_sh=c_i_sh, c_i_1=c_i_1,
+                 codes=c_sh)
+    overlap = np.mean([
+        len(set(c_i_sh[i][c_i_sh[i] >= 0].tolist())
+            & set(c_i_1[i][c_i_1[i] >= 0].tolist()))
+        / max(len(set(c_i_1[i][c_i_1[i] >= 0].tolist())), 1)
+        for i in range(B)])
+    if m_sh != m_1:
+        raise AssertionError(f"sharded {m_sh} != single {m_1}")
+    if not overlap > 0.99:
+        raise AssertionError(f"top-100 id overlap {overlap:.4f}")
+    out = {"metric": "sharded_trained_parity", "n_queries": B,
+           "mesh": {"data": mesh_shape[0], "corpus": mesh_shape[1]},
+           "ndoc": spec.ndoc, "sharded": m_sh, "single": m_1,
+           "top100_overlap": round(float(overlap), 4),
+           "beam_codes_equal": True,
+           "sharded_serve_s": round(dt_sh, 1),
+           # the port's additions: v3 launches summed over the ranks; the
+           # launch's seconds, until rank 0 ran its body, and its models,
+           # mesh and shard
+           "bucket_launches": int(sum(r["launches"] for r in ranks)),
+           "launch_s": round(launch_s, 1),
+           "rank0_entered_s": round(ranks[0]["entered"] - t_launch, 1),
+           "rank0_setup_s": round(ranks[0]["setup_s"], 1)}
+    with open(osp.join(workdir, "SHARDED_PARITY.json"), "w") as fw:
+        fw.write(json.dumps(out) + "\n")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 STAGES = ("data", "train", "tower", "eval")
 
 
 def main(argv=None):
     """Runs the stages ``QF_STAGE`` selects; returns the QUALITY dict
-    when ``eval`` ran, else None."""
+    when ``eval`` ran, else the SHARDED_PARITY dict when ``sharded`` ran,
+    else None."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -774,10 +981,10 @@ def main(argv=None):
     stages = set(os.environ.get("QF_STAGE", "all").split(","))
     if "all" in stages:
         stages = set(STAGES)
-    unknown = stages - set(STAGES)
+    unknown = stages - set(STAGES) - {"sharded"}
     if unknown:
         raise ValueError(f"unknown QF_STAGE {sorted(unknown)} "
-                         f"(known: {', '.join(STAGES)}, all)")
+                         f"(known: {', '.join(STAGES)}, sharded, all)")
     workdir = osp.abspath(os.environ.get("QF_WORKDIR", default_workdir()))
     spec_p = osp.join(workdir, "spec.json")
     if "data" not in stages and osp.exists(spec_p):
@@ -795,9 +1002,13 @@ def main(argv=None):
         stage_train(spec, workdir, cfg, dev)
     if "tower" in stages:
         stage_tower(spec, workdir, cfg, dev)
+    out = None
     if "eval" in stages:
-        return stage_eval(spec, workdir, cfg, out_path, dev)
-    return None
+        out = stage_eval(spec, workdir, cfg, out_path, dev)
+    if "sharded" in stages:
+        parity = stage_sharded(spec, workdir, cfg, dev)
+        out = out if out is not None else parity
+    return out
 
 
 if __name__ == "__main__":

@@ -27,7 +27,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, synchronize
 
 H100_SXM_BF16_DENSE_FLOPS = 989e12     # bf16 tensor cores, dense
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
@@ -54,22 +54,40 @@ def _trace_file(trace_path: str) -> str:
     return max(paths, key=os.path.getmtime)
 
 
-def device_op_seconds(trace_path: str
+def _outermost(events):
+    """The events not inside another of the list on the same process and
+    thread (complete events: ``ts`` and ``dur`` in us)."""
+    out, ends = [], {}
+    for e in sorted(events, key=lambda e: (float(e.get("ts", 0.0)),
+                                           -float(e.get("dur", 0.0)))):
+        lane = (e.get("pid"), e.get("tid"))
+        ts = float(e.get("ts", 0.0))
+        if ts >= ends.get(lane, -float("inf")):
+            out.append(e)
+            ends[lane] = ts + float(e.get("dur", 0.0))
+    return out
+
+
+def device_op_seconds(trace_path: str, category: str = "kernel"
                       ) -> Tuple[float, Dict[str, float], Dict[str, int]]:
     """Device kernel time of a ``torch.profiler`` chrome trace (a file,
     gzipped or not, or the newest one under a directory): the complete
     events of category ``kernel`` (CUDA kernels; memcpy and memset events
-    have their own categories and are left out).  Returns (total
-    seconds, seconds by kernel name, launches by kernel name)."""
+    have their own categories and are left out).  ``category="cpu_op"``
+    reads a CPU-only trace instead: the outermost operator events of
+    each thread (an operator's nested calls are not counted twice).
+    Returns (total seconds, seconds by name, calls by name)."""
     path = _trace_file(trace_path)
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as fr:
         events = json.load(fr).get("traceEvents", [])
+    events = [e for e in events
+              if e.get("ph") == "X" and e.get("cat") == category]
+    if category == "cpu_op":
+        events = _outermost(events)
     per_op: Dict[str, float] = {}
     calls: Dict[str, int] = {}
     for e in events:
-        if e.get("ph") != "X" or e.get("cat") != "kernel":
-            continue
         name = e.get("name", "?")
         per_op[name] = per_op.get(name, 0.0) + float(e.get("dur", 0.0)) * 1e-6
         calls[name] = calls.get(name, 0) + 1
@@ -89,20 +107,56 @@ def traced_stage_seconds(fn: Callable[[int], object], n: int = 3,
     """Run ``fn(i)`` for i < n under ``torch.profiler`` (CPU and CUDA
     activity), the card synchronized before and after, export the chrome
     trace to ``trace_dir`` (a temporary directory by default) and read
-    it back with :func:`device_op_seconds`.  Raises without a card."""
+    it back with :func:`device_op_seconds`.  Raises without a card when
+    ``device`` is CUDA; with ``device="cpu"`` the trace is the host's
+    and its "device" time the outermost operators' (``cpu_op``)."""
     from torch.profiler import ProfilerActivity, profile
     dev = resolve_device(device)
-    torch.cuda.synchronize(dev)
+    on_card = dev.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    synchronize(dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(trace_dir or tmp, "trace.json")
         os.makedirs(os.path.dirname(out), exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(n):
                 fn(i)
-            torch.cuda.synchronize(dev)
+            synchronize(dev)
             wall = time.perf_counter() - t0
         prof.export_chrome_trace(out)
-        total, per_op, calls = device_op_seconds(out)
+        total, per_op, calls = device_op_seconds(
+            out, "kernel" if on_card else "cpu_op")
     return StageTrace(total / max(n, 1), wall / max(n, 1), per_op, calls)
+
+
+def sequential_pipelined_ms(fn: Callable[[int], object], iters: int = 5,
+                            warmup: int = 1, device="cuda"
+                            ) -> Tuple[float, float]:
+    """ms a call of ``fn(i)``: sequential (each call launched, then the
+    device synchronized) and pipelined (``iters`` calls launched back to
+    back, one synchronize), after ``warmup`` calls.  CUDA events time the
+    card; the host clock times the CPU."""
+    dev = resolve_device(device)
+    for i in range(warmup):
+        fn(i)
+    synchronize(dev)
+
+    def span(calls):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for i in calls:
+                fn(i)
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b)
+        t0 = time.perf_counter()
+        for i in calls:
+            fn(i)
+        return (time.perf_counter() - t0) * 1e3
+    seq = sum(span([warmup + i]) for i in range(iters)) / iters
+    pipe = span(range(iters)) / iters
+    return seq, pipe

@@ -27,6 +27,7 @@ import torch
 
 from test_torch_quality_full import (jax_bundle, port_bundle,  # noqa: F401
                                      private_synth_caches)
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "ndoc", "batch", "cap",
@@ -57,7 +58,7 @@ def jax_bench(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def bundles(tmp_path_factory):
-    jax_dir = jax_bundle(tmp_path_factory, "data,train,tower")
+    jax_dir = jax_bundle(tmp_path_factory, "all")
     return jax_dir, port_bundle(
         jax_dir, str(tmp_path_factory.mktemp("port_bundle") / "b"))
 

@@ -67,25 +67,49 @@ def private_synth_caches(tmp_path_factory):
         yield base
 
 
+def _session_dir(tmp_path_factory):
+    """A directory every worker of this pytest session shares (the
+    workers' base under ``pytest -n``, else this process's)."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
 def jax_bundle(tmp_path_factory, stages):
     """The JAX script's tiny run (the stages given), in a process of its
-    own with its synth cache in a directory of its own; returns its
-    workdir."""
-    workdir = str(tmp_path_factory.mktemp("jax_qf"))
-    cache = str(tmp_path_factory.mktemp("jax_qf_synth"))
-    env = dict(os.environ, **TINY_ENV)
-    env.update({"QF_FORCE_CPU": "1", "QF_STAGE": stages,
-                "QF_WORKDIR": workdir, "QF_SCAN": "4",
-                "QF_OUT": osp.join(workdir, "QUALITY.json"),
-                "JAX_PLATFORMS": "cpu",
-                "JAX_COMPILATION_CACHE_DIR": osp.join(workdir, "jax_cache")})
-    env.pop("XLA_FLAGS", None)
-    proc = subprocess.run(
-        [sys.executable, osp.join(REPO, "tests", "torch_synth_cache_jax.py"),
-         cache, osp.join(REPO, "scripts", "quality_full.py")],
-        env=env, cwd=REPO, capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return workdir
+    own with its synth cache in a directory of its own; returns a private
+    copy of its workdir.  The run is made once a session for every
+    module that asks for the same stages (under a file lock: the modules
+    of ``pytest -n`` run in several workers); each caller gets its own
+    copy, so none sees another's writes."""
+    from filelock import FileLock
+    root = _session_dir(tmp_path_factory) / "jax_qf_shared"
+    root.mkdir(exist_ok=True)
+    key = stages.replace(",", "_")
+    built = root / key
+    with FileLock(str(root / f"{key}.lock")):
+        if not (root / f"{key}.done").exists():
+            shutil.rmtree(built, ignore_errors=True)
+            built.mkdir()
+            workdir = str(built)
+            env = dict(os.environ, **TINY_ENV)
+            env.update({"QF_FORCE_CPU": "1", "QF_STAGE": stages,
+                        "QF_WORKDIR": workdir, "QF_SCAN": "4",
+                        "QF_OUT": osp.join(workdir, "QUALITY.json"),
+                        "JAX_PLATFORMS": "cpu",
+                        "JAX_COMPILATION_CACHE_DIR": str(root / "jax_cache")})
+            env.pop("XLA_FLAGS", None)
+            proc = subprocess.run(
+                [sys.executable,
+                 osp.join(REPO, "tests", "torch_synth_cache_jax.py"),
+                 str(root / f"{key}_synth"),
+                 osp.join(REPO, "scripts", "quality_full.py")],
+                env=env, cwd=REPO, capture_output=True, text=True,
+                timeout=900)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            (root / f"{key}.done").touch()
+    copy = str(tmp_path_factory.mktemp("jax_qf") / "w")
+    shutil.copytree(built, copy)
+    return copy
 
 
 def port_bundle(jax_dir, out_dir):
