@@ -185,8 +185,7 @@ Phases:
      0.99; (b) ``scripts.data_ceiling`` over its dev set; (c)
      ``scripts.scaling_curve`` at 1,000,000, 2,210,455, 4,420,911 and
      8,841,823 rows, int8, a bench process a size with 2 timed batches
-     (``SCALE11``; the largest size is 10c's int8 line, read as its
-     sidecar), every line whole and under its coverage bound; (d)
+     (``SCALE11``), every line whole and under its coverage bound; (d)
      ``scripts.nq_scale_demo`` at 21,015,324 rows and d 768: the mesh
      stage in a process of its own (eight ranks, each making its 4.03
      GB int8 shard on the card), its pool against the plain v3 over the
@@ -2607,8 +2606,7 @@ def sharded_serve_rank(dev, semb, offsets, doc_ids, nci_path, cfg, seed,
             raise AssertionError(f"9: ranks of one {ax} group hold "
                                  "different weights")
     n = len(doc_ids)
-    index_kw = dict(offsets=torch.from_numpy(offsets).to(dev),
-                    doc_ids=torch.from_numpy(doc_ids).to(dev),
+    index_kw = dict(offsets=offsets.to(dev), doc_ids=doc_ids.to(dev),
                     levels=cfg["levels"], kary=cfg["kary"])
     torch.cuda.reset_peak_memory_stats(dev)
     shard = PM.shard_rows(semb[:n], mesh)        # the rank's own copy
@@ -2625,7 +2623,7 @@ def sharded_serve_rank(dev, semb, offsets, doc_ids, nci_path, cfg, seed,
     B.bucket_scores_v3.launches = 0
     stage, fill = [], []
     for i, ids_h in enumerate(batches):
-        ids = torch.from_numpy(PM.data_slice(ids_h, mesh)).to(dev)
+        ids = PM.data_slice(ids_h, mesh).to(dev)
         mask = torch.ones_like(ids)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2669,15 +2667,14 @@ def nccl_serve_rank(dev, semb16, offsets, doc_ids, nci_path, cfg, seed,
     mesh = PM.make_mesh(1, 1, device=dev)
     backends = {ax: dist.get_backend(mesh.group(ax)) for ax in PM.AXES}
     qtower, nci = rank_models(dev, nci_path, cfg, seed)
-    index = FineIndex(torch.from_numpy(offsets).to(dev),
-                      torch.from_numpy(doc_ids).to(dev),
+    index = FineIndex(offsets.to(dev), doc_ids.to(dev),
                       PM.shard_rows(semb16[:len(doc_ids)], mesh),
                       cfg["levels"], cfg["kary"])
     server = ShardedBucketServer(qtower, nci, mesh, index,
                                  num_beams=cfg["beams"], cap=cfg["cap"],
                                  pool=cfg["pool"],
                                  length_penalty=cfg["length_penalty"])
-    ids = torch.from_numpy(ids_h).to(dev)
+    ids = ids_h.to(dev)
     B.bucket_scores_v3.launches = 0
     qemb, codes, _ = server.coarse(ids, torch.ones_like(ids))
     scores, dids, _ = gather_batch((*server.fine(qemb, codes), codes), mesh)
@@ -2800,7 +2797,7 @@ def dp_train_rank(dev, cfg, seed, batches, refs):
     mesh = PM.make_mesh(2, 1, device=dev)
     out = {}
     for kind, model, mcfg in dp_models(cfg, seed, dev):
-        local = {k: PM.data_slice(torch.from_numpy(v).to(dev), mesh)
+        local = {k: PM.data_slice(v.to(dev), mesh)
                  for k, v in batches[kind].items()}
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2847,22 +2844,24 @@ def sharded_phase(cfg, seed, dev, corpus, nci_path):
     t_phase = time.perf_counter()
     spec, draws = corpus["spec"], corpus["draws"]
     offsets, doc_ids = corpus["offsets"], corpus["doc_ids"]
+    # the ranks' host arguments as tensors, which reach them through
+    # shared memory
+    offsets_t, doc_ids_t = (torch.from_numpy(x) for x in (offsets, doc_ids))
     Bq, cap = cfg["batch"], cfg["cap"]
     secs = {}
     rng = np.random.default_rng(seed + 91)
-    batches = [synth.query_tokens(spec, draws[rng.integers(
-        0, spec.ndoc, Bq)], rng).astype(np.int32)
-        for _ in range(cfg["warmup"] + cfg["timed"])]
+    batches = torch.from_numpy(np.stack([synth.query_tokens(
+        spec, draws[rng.integers(0, spec.ndoc, Bq)], rng).astype(np.int32)
+        for _ in range(cfg["warmup"] + cfg["timed"])]))
     nci = load_nci(dev, nci_path)
     with torch.inference_mode():
         tables = nci.head_level_tables()
-    off_d = torch.from_numpy(offsets).to(dev)
-    ids_d = torch.from_numpy(doc_ids).to(dev)
+    off_d, ids_d = offsets_t.to(dev), doc_ids_t.to(dev)
     half = Bq // S9["data"]
     # the single-rank beam of each data slice of the last batch
     beams = []
     for d in range(S9["data"]):
-        ids = torch.from_numpy(batches[-1][d * half:(d + 1) * half]).to(dev)
+        ids = batches[-1][d * half:(d + 1) * half].to(dev)
         with torch.inference_mode():
             beams.append(nci_beam_search_incremental(
                 nci, ids, torch.ones_like(ids), cfg["beams"],
@@ -2875,7 +2874,7 @@ def sharded_phase(cfg, seed, dev, corpus, nci_path):
         the oracle, their beams against the single-rank beams."""
         t0 = time.perf_counter()
         res = launch_local(sharded_serve_rank, S9["data"] * S9["corpus"],
-                           "gloo", "cuda:0", semb, offsets, doc_ids,
+                           "gloo", "cuda:0", semb, offsets_t, doc_ids_t,
                            nci_path, cfg, seed, batches)
         secs[f"ranks_{tag}_s"] = time.perf_counter() - t0
         errs, n_sep = [], 0
@@ -2924,8 +2923,8 @@ def sharded_phase(cfg, seed, dev, corpus, nci_path):
         dtype=torch.bfloat16, device=dev))
     r0 = serve("9a_bf16", semb)
     t0 = time.perf_counter()
-    rc = launch_local(nccl_serve_rank, 1, "nccl", "cuda:0", semb, offsets,
-                      doc_ids, nci_path, cfg, seed, batches[-1][:half])[0]
+    rc = launch_local(nccl_serve_rank, 1, "nccl", "cuda:0", semb, offsets_t,
+                      doc_ids_t, nci_path, cfg, seed, batches[-1][:half])[0]
     secs["rank_9c_s"] = time.perf_counter() - t0
     if set(rc["backends"].values()) != {"nccl"} or rc["launches"] == 0:
         raise AssertionError(f"9c: {rc['backends']}, {rc['launches']} "
@@ -2997,7 +2996,8 @@ def sharded_phase(cfg, seed, dev, corpus, nci_path):
             torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rd = launch_local(dp_train_rank, 2, "gloo", "cuda:0", cfg, seed,
-                      dp_batches, refs)
+                      {kind: {k: torch.from_numpy(v) for k, v in b.items()}
+                       for kind, b in dp_batches.items()}, refs)
     secs["ranks_9d_s"] = time.perf_counter() - t0
     lr = max(mcfg.train.learning_rate, mcfg.train.decoder_learning_rate,
              mcfg.train.docenc_learning_rate)
@@ -3061,11 +3061,11 @@ def trees_equal(tag, a, b):
 # 10a's cuts, of depth only (the model, tower and RQ widths are the
 # JAX script's full ones): 153,600 documents of 1,000,000, one utterance
 # a document of 4 and one epoch of 8 (300 steps at batch 512, phase 7's
-# size), 400 tower steps of 24,000 (cut from 800 for the time limit
-# when phase 11 came; 800 steps reached a dev exact-MIPS recall@100 of
-# ~0.05, 200 ~0.002), 512 dev queries of 2,048
+# size), 800 tower steps of 24,000 (the tower's dev exact-MIPS
+# recall@100 reaches ~0.05, against 0.002 after 200), 512 dev queries of
+# 2,048
 QUAL10 = dict(QF_NDOC="153600", QF_UTT="1", QF_EPOCHS="1", QF_BATCH="512",
-              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="400",
+              QF_NDEV="512", QF_EVAL_BATCH="256", QF_TOWER_STEPS="800",
               QF_TOWER_SCAN="8", QF_TOWER_PROBE="200")
 # 10c / 10d: the largest |int8 - bf16| of the trained fine recall@100, 10
 # of 512 queries: int8 rounding moves a score by ~4e-4 (an error of up to
@@ -3207,14 +3207,14 @@ def bench_phase(cfg, dev, ndoc=None):
 
 
 def tax_phase(cfg, dev, workdir, ndoc=None, extra=(), tag="10c",
-              fine_signal=False, lines_out=None):
+              fine_signal=False):
     """10c / 10d: ``scripts.int8_tax`` over 10a's bundle (the trained
     pipeline) at ``ndoc`` (default all) rows, bf16 then int8, each bench
     run a process of its own.  Gates: the trained coarse keys equal
     between the two (the corpus dtype does not enter the coarse stage),
     the trained fine recall@100 within ``FINE_TAX_TOL``, and with
     ``fine_signal`` above 0 in both.  Returns the v3 launches of the bf16
-    and of the int8 run; ``lines_out`` receives both lines by dtype."""
+    and of the int8 run."""
     from mevi_tpu_torch.scripts import int8_tax
     t0 = time.perf_counter()
     art, lines = int8_tax.run(ndoc or cfg["ndocs"], str(dev), ckpt=workdir,
@@ -3233,8 +3233,6 @@ def tax_phase(cfg, dev, workdir, ndoc=None, extra=(), tag="10c",
     n = {dt: line["bucket_launches"]["v3"] for dt, line in lines.items()}
     if not all(n.values()):
         raise AssertionError(f"{tag}: v3 launches {n}")
-    if lines_out is not None:
-        lines_out.update(lines)
     emit(phase=f"{tag}_int8_tax", seconds=time.perf_counter() - t0,
          artifact=art)
     return n["bf16"], n["int8"]
@@ -3254,9 +3252,7 @@ def scripts_phase(cfg, dev, workdir):
     emit(phase="10b_seconds", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
-    lines_c = {}
-    n_c, n_c8 = tax_phase(cfg, dev, workdir, lines_out=lines_c)
-    seed_scaling_row(workdir, lines_c[SCALE11["dtype"]])
+    n_c, n_c8 = tax_phase(cfg, dev, workdir)
     # the bundle's own corpus, whose leaves the cap truncates far less
     # than 8,841,823 rows': the trained fine keys carry a signal there
     ndoc_own = synth.load_spec(osp.join(workdir, "spec.json")).ndoc
@@ -3276,9 +3272,8 @@ def scripts_phase(cfg, dev, workdir):
 # ---------------------------------------------------------------------------
 
 # the time limit's cuts, of depth only: 11c: the JAX curve's four sizes,
-# int8, each a bench process with 2 timed batches of its 20, the largest
-# read from 10c's int8 line (the same bench, bundle, size and dtype);
-# 11d: the true NQ rows at d 768, not cut; 11e: 300 DEMO_STEPS of 4,000
+# int8, each a bench process with 2 timed batches of its 20; 11d: the
+# true NQ rows at d 768, not cut; 11e: 300 DEMO_STEPS of 4,000
 SCALE11 = dict(sizes=(1_000_000, 2_210_455, 4_420_911, 8_841_823),
                dtype="int8", nbatch=2, timeout=900)
 NQ11 = dict(ndoc=21_015_324, d=768, plain_atol=1e-3, timeout=900)
@@ -3318,27 +3313,11 @@ def ceiling_phase(dev, workdir):
     emit(phase="11b_data_ceiling", seconds=time.perf_counter() - t0, **rep)
 
 
-def seed_scaling_row(workdir, line):
-    """10c's int8 bench line as 11c's sidecar at its size: the same bench
-    over the same bundle, size and dtype (with 20 timed batches), which
-    the curve then reads instead of running that size again."""
-    from mevi_tpu_torch.scripts import scaling_curve as sc
-    side = osp.join(workdir, "scaling_stages")
-    os.makedirs(side, exist_ok=True)
-    row = {k: line[k] for k in sc.KEEP if k in line}
-    row["secs"] = None
-    with open(osp.join(side, sc.tag_of(line["ndoc"], line["corpus_dtype"],
-                                       None) + ".json"), "w") as fw:
-        fw.write(json.dumps(row) + "\n")
-
-
 def scaling_phase(cfg, dev, workdir):
     """11c: ``scaling_curve`` over 10a's bundle at ``SCALE11``'s sizes,
-    int8, one bench process a size; a size whose sidecar 10c wrote
-    (:func:`seed_scaling_row`) is read from it.  Gates: every row holds
-    ``KEEP``, each whole bench line run here passes ``check_bench_line``
-    (recalls under their coverage bound).  Returns the v3 launches by
-    size run."""
+    int8, one bench process a size.  Gates: every row holds ``KEEP``,
+    each bench line passes ``check_bench_line`` (recalls under their
+    coverage bound).  Returns the v3 launches by size."""
     from mevi_tpu_torch.scripts import scaling_curve as sc
     t0 = time.perf_counter()
     side = osp.join(workdir, "scaling_stages")
@@ -3356,7 +3335,7 @@ def scaling_phase(cfg, dev, workdir):
         check_bench_line(f"11c_{tag}", line, trained=True,
                          on_card=dev.type == "cuda")
         n[f"11c_scaling_{line['ndoc']}_int8"] = line["bucket_launches"]["v3"]
-    if len(curve["curve"]) != len(SCALE11["sizes"]) or not n or \
+    if not len(curve["curve"]) == len(n) == len(SCALE11["sizes"]) or \
             not all(n.values()):
         raise AssertionError(f"11c: v3 launches {n}")
     emit(phase="11c_scaling_curve", seconds=time.perf_counter() - t0,

@@ -26,7 +26,7 @@ import dataclasses
 import datetime
 import os
 import tempfile
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -260,46 +260,8 @@ def _local_device(device: str, rank: int) -> str:
     return f"cuda:{rank}" if device == "cuda" else device
 
 
-class _SharedArray(NamedTuple):
-    """A numpy argument on its way to the ranks, as a CPU tensor (shared
-    memory)."""
-    tensor: torch.Tensor
-
-
-def _share(x):
-    """numpy arrays in ``x`` (also inside lists, tuples and dicts) as
-    :class:`_SharedArray`: a spawned rank reads its arguments from a pipe
-    only after its imports, and a payload past the pipe's buffer holds
-    the parent until then, so big arrays pickled by value start the
-    ranks one after another."""
-    if isinstance(x, np.ndarray):
-        x = np.ascontiguousarray(x) if x.flags.writeable else np.array(x)
-        try:
-            return _SharedArray(torch.from_numpy(x))
-        except TypeError:              # a dtype torch does not hold
-            return x
-    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
-        return type(x)(_share(v) for v in x)
-    if isinstance(x, dict):
-        return {k: _share(v) for k, v in x.items()}
-    return x
-
-
-def _unshare(x):
-    """The inverse of :func:`_share` (arrays as views of the shared
-    memory)."""
-    if isinstance(x, _SharedArray):
-        return x.tensor.numpy()
-    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
-        return type(x)(_unshare(v) for v in x)
-    if isinstance(x, dict):
-        return {k: _unshare(v) for k, v in x.items()}
-    return x
-
-
 def _rank_main(rank, fn, world, backend, device, workdir, args):
     os.environ["LOCAL_RANK"] = str(rank)
-    args = _unshare(args)
     dev = _local_device(device, rank)
     if torch.device(dev).type == "cpu":
         torch.set_num_threads(1)      # the ranks share the host's cores
@@ -324,16 +286,18 @@ def launch_local(fn: Callable, world: int, backend: str, device: str,
     ``workdir`` (the system's by default), runs ``fn`` on
     its device (see :func:`_local_device`) and saves what it returns
     (host objects) for the parent.  ``fn`` must be importable by name
-    (spawn pickles it); tensors and numpy arrays among ``args`` (also in
-    lists, tuples and dicts) reach the ranks through shared memory, CUDA
-    tensors through CUDA IPC: the ranks read them and do not write to
-    them.  If a rank fails, the others are stopped and this raises."""
+    (spawn pickles it); tensors among ``args`` reach the ranks through
+    shared memory, CUDA ones through CUDA IPC.  Pass big host arrays as
+    tensors (``torch.from_numpy``): arguments pickled by value past the
+    pipe's buffer hold the parent until each rank has imported, so the
+    ranks start one after another.  If a rank fails, the others are
+    stopped and this raises."""
     import torch.multiprocessing as tmp
 
     resolve_device(device)
     with tempfile.TemporaryDirectory(dir=workdir) as wd:
         tmp.start_processes(_rank_main, args=(fn, world, backend, device, wd,
-                                              _share(args)),
+                                              args),
                             nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(wd, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]

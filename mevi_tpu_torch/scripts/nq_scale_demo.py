@@ -175,7 +175,7 @@ def mesh_rank(dev, sorted_emb, ndoc, d, seed, offsets, doc_ids, q_h, params):
     synchronize(dev)
     shard_s = time.time() - entered
     t0 = time.perf_counter()
-    q = torch.from_numpy(PM.data_slice(q_h, mesh)).to(dev)
+    q = PM.data_slice(q_h, mesh).to(dev)
     s, i = sharded_mips_topk(q, shard, MESH_POOL, mesh, ndoc,
                              chunk=MIPS_CHUNK)
     s, i = (PM.gather_rows(t, mesh) for t in (s, i))
@@ -183,8 +183,7 @@ def mesh_rank(dev, sorted_emb, ndoc, d, seed, offsets, doc_ids, q_h, params):
     mips_s = time.perf_counter() - t0
 
     qtower, nci = mesh_models(d, dev, params)
-    index = FineIndex(torch.from_numpy(offsets).to(dev),
-                      torch.from_numpy(doc_ids).to(dev), shard, M, KARY)
+    index = FineIndex(offsets.to(dev), doc_ids.to(dev), shard, M, KARY)
     server = ShardedBucketServer(qtower, nci, mesh, num_beams=NBEAM,
                                  cap=MESH_CAP, pool=MESH_POOL,
                                  index_shard=index)
@@ -231,8 +230,8 @@ def plain_pool(sorted_emb, offsets, doc_ids, qemb, codes, device):
 
 def stage_mesh(out, device="cuda", params=None, host_rows=None):
     """21M-row sharded serving on a data 2 x corpus 4 mesh of ranks.
-    ``params``: (NCI, tower) flax parameters of the tiny models (random
-    from seeds 0 and 1 when None).  ``host_rows``: the JAX stage's host
+    ``params``: (NCI, tower) flattened flax parameters of the tiny models
+    as CPU tensors (random from seeds 0 and 1 when None).  ``host_rows``: the JAX stage's host
     draws (the CPU's default) or, False, rows each rank makes on its
     device (the card's).  Raises if the MIPS check or the plain-v3 pool
     check fails."""
@@ -264,8 +263,9 @@ def stage_mesh(out, device="cuda", params=None, host_rows=None):
     t0 = time.time()
     rank_dev = "cpu" if not on_card else f"cuda:{dev.index or 0}"
     res = launch_local(mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1], "gloo",
-                       rank_dev, sorted_emb, ndoc, d, seed, offsets, doc_ids,
-                       q_h, params)
+                       rank_dev, sorted_emb, ndoc, d, seed,
+                       torch.from_numpy(offsets), torch.from_numpy(doc_ids),
+                       torch.from_numpy(q_h), params)
     launch_s = time.time() - t0
     r0 = res[0]
     ts, ti, tc, qemb = r0["server"]

@@ -813,12 +813,11 @@ def sharded_rank(dev, semb, workdir, cfg, offsets, doc_ids, levels, kary,
     B.bucket_scores_v3.launches = 0
     nci = load_nci(cfg, dev)
     tower = load_tower(cfg, osp.join(workdir, "tower_params.npz"), dev)
-    index = FineIndex(torch.from_numpy(offsets).to(dev),
-                      torch.from_numpy(doc_ids).to(dev),
+    index = FineIndex(offsets.to(dev), doc_ids.to(dev),
                       PM.shard_rows(semb, mesh), levels, kary)
     server = ShardedBucketServer(tower, nci, mesh, index,
                                  num_beams=num_beams, cap=cap, pool=pool)
-    ids = torch.from_numpy(PM.data_slice(ids_h, mesh)).to(dev)
+    ids = PM.data_slice(ids_h, mesh).to(dev)
     synchronize(dev)
     setup_s = time.time() - entered
     t0 = time.perf_counter()
@@ -885,8 +884,9 @@ def stage_sharded(spec, workdir, cfg, device="cuda"):
     t_launch = time.time()
     ranks = launch_local(
         sharded_rank, mesh_shape[0] * mesh_shape[1], backend, rank_dev,
-        semb, workdir, cfg, offsets, doc_ids, spec.levels, spec.kary, ids_h,
-        mesh_shape, NBEAM, CAP, POOL)
+        semb, workdir, cfg, torch.from_numpy(offsets),
+        torch.from_numpy(doc_ids), spec.levels, spec.kary,
+        torch.from_numpy(ids_h), mesh_shape, NBEAM, CAP, POOL)
     s_sh, i_sh, c_sh = ranks[0]["out"]
     dt_sh = ranks[0]["seconds"]
     launch_s = time.time() - t_launch

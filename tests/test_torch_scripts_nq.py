@@ -59,8 +59,10 @@ def recorder(store, name, fn, index=0):
 
 
 def flat(params):
+    import torch
     from flax import traverse_util
-    return {k: np.asarray(v) for k, v in
+    # CPU tensors: the port's ranks receive them through shared memory
+    return {k: torch.from_numpy(np.array(v)) for k, v in
             traverse_util.flatten_dict(params, sep="/").items()}
 
 
