@@ -8,7 +8,7 @@ corpus.
     python3 chip_smoke.py [--seed 0] [--phase1-only | --phase6-only |
                                      --phase7-only | --phase8-only |
                                      --phase9-only | --phase10-only |
-                                     --phase11-only]
+                                     --phase11-only | --phase12-only]
 
 ``--phase1-only`` builds the kernels, runs phase 1 and stops, with no
 result line: the kernel A/B at phase-1 geometry.  ``--phase6-only``
@@ -19,7 +19,8 @@ runs phase 8 alone, with no result line; ``--phase9-only`` runs phase
 6a's corpus build, phase 7, then phase 9, with no result line;
 ``--phase10-only`` builds the kernels and runs phase 10 alone, with no
 result line; ``--phase11-only`` builds the kernels, runs 10a (the bundle
-phase 11 reads), then phase 11, with no result line.
+phase 11 reads), then phase 11, with no result line; ``--phase12-only``
+builds the kernels and runs phase 12 alone, with no result line.
 
 Phases:
   1. the bucket kernels (v3, fused, v2 and raw modes) against their plain
@@ -59,8 +60,7 @@ Phases:
      on 65,536 rows, (d) ``adc_search`` of 512 queries at k 1000 over
      the device one-hot matrix against a plain recompute, (e) one
      ``BucketServer`` batch over the built index against the plain
-     pool; then the ``center_levels`` build (full width when it keeps
-     the phase under 300 s, else 1,048,576 rows) and (f)
+     pool; then the ``center_levels`` build on 1,048,576 rows and (f)
      ``hierarchical_kmeans_ids`` (k 30, c 30) on 65,536 rows;
   6. ``bench.py``'s synthetic corpus at its TPU geometry, after phase 5
      is freed (``data/synth.py``: 8,841,823 x 768, kary 32, 4 levels,
@@ -82,8 +82,8 @@ Phases:
   7. training over phase 6's corpus: (a) ``mevi_tpu_torch.cli.main
      train --device cuda --max_epochs 1`` in-process over
      ``configs/marco_rq4x5.json`` with bf16 compute and dropout 0.1,
-     153,600 query-language queries for random documents with their
-     codes (300 steps at batch 512), the 1,024-query dev hit@10 probe:
+     76,800 query-language queries for random documents with their
+     codes (150 steps at batch 512), the 1,024-query dev hit@10 probe:
      ms a step (median, spread), queries/s, model FLOPs a step and their
      share of the bf16 dense peak, peak memory, the first and last 20
      losses, the leaderboard; (b) the best tag restored through
@@ -102,8 +102,8 @@ Phases:
   8. the single-card CLI pipeline, each command in process through
      ``mevi_tpu_torch.cli.main.main([...])`` with ``--device cuda``,
      over ``configs/marco_rq4x5.json`` with bf16 compute and synthetic
-     MS MARCO text from the seed (65,536 passages of ~32 Zipf words,
-     16,384 train and 1,024 dev queries of words of their gold passage,
+     MS MARCO text from the seed (16,384 passages of ~32 Zipf words,
+     4,096 train and 1,024 dev queries of words of their gold passage,
      in MS MARCO's raw file layouts; a T5-base ``T5Model`` checkpoint
      in HF names from seeded random tensors): (a) ``prepare --doc_aug``
      and ``tokenize`` (128 / 32 tokens, ``HashTokenizer``), whether the
@@ -117,15 +117,15 @@ Phases:
      ``--corpus_int8``, ``--host_stream`` (equal to the device
      reranker's report), one batch's pool against the plain bucket
      version, the result tsvs read back; (f) ``train-joint`` (tower and
-     codes and codebooks of (b)-(c), 20 steps at batch 64, 7 negatives,
-     remat) whose validation refits RQ over the 65,536 passages and
+     codes and codebooks of (b)-(c), 4 steps at batch 64, 7 negatives,
+     remat) whose validation refits RQ over the 16,384 passages and
      evaluates 256 dev queries, then ``--resume best``, bit for bit;
      (g) float32 decoding: ``trie_beam_search`` over ``build-hier`` ids
      (k 30, c 30) of 16,384 embeddings, 512 queries, 10 beams, every id
      a trie path to a terminal and its score the teacher-forced one
      (1e-3); ``brute_force_topk`` over all 32^4 sequences of (d)'s NCI
      for one query against ``nci_beam_search_incremental``; (h)
-     ``doc2query`` (512 passages x 10 queries of 64 tokens, batch 128),
+     ``doc2query`` (64 passages x 10 queries of 64 tokens, batch 128),
      a greedy ``generate`` of 64 passages against the panel's argmax at
      every step, one ``--repair`` round over 16 broken docs;
   9. the multi-device path (``mevi_tpu_torch.parallel``), its ranks
@@ -183,8 +183,8 @@ Phases:
      single-device path in the ranks' row layout; gates:
      beam codes equal, canonical metrics equal, top-100 overlap above
      0.99; (b) ``scripts.data_ceiling`` over its dev set; (c)
-     ``scripts.scaling_curve`` at 1,000,000, 2,210,455, 4,420,911 and
-     8,841,823 rows, int8, a bench process a size with 2 timed batches
+     ``scripts.scaling_curve`` at 1,000,000 and 8,841,823 rows (the JAX
+     curve's ends), int8, a bench process a size with 2 timed batches
      (``SCALE11``), every line whole and under its coverage bound; (d)
      ``scripts.nq_scale_demo`` at 21,015,324 rows and d 768: the mesh
      stage in a process of its own (eight ranks, each making its 4.03
@@ -196,20 +196,47 @@ Phases:
      the coarse stage's instruments at the serving shapes:
      ``profile_beam`` (with its traced breakdown), ``profile_step``,
      ``beam_trace`` (device ms by kernel category, share of the bf16
-     peak) and ``trace_beam_only``.
+     peak) and ``trace_beam_only``;
+ 12. the NQ-DPR configuration (``configs/nqdpr_rq4x5.json``, bf16
+     compute, one training epoch): (a) the port's
+     ``scripts/nqdpr_pipeline.sh`` run stage by stage (prepare, answers,
+     index, train, eval), each CLI call a process, over NQ's raw
+     layouts made from the seed (65,536 passages of ~100 Zipf words in
+     ``psgs_w100.tsv``, 16,384 items of ``biencoder-nq-train.json``,
+     nq-test's 3,610 questions with 2-3 word answer spans in
+     ``nq-test.qa.csv``) and ``ar2_nq.pkl``, two BERT towers at
+     ERNIE-base widths (12 layers, d 768, type vocabulary 4) with HF's
+     initialization under HF ``BertModel`` names; gates: 1,024 rows of
+     ``docemb.bin`` against a float32 recompute with the ``ctx_model.``
+     tower (per-row relative L2 2e-2), the eval report equal to a numpy
+     recomputation from the result tsvs, ``rq_codes.npy`` and the
+     inverse answer arrays, fine hitrate@100 above 0, one batch's pool
+     against the plain v3 (1e-3), v3 launched by the eval stage; (b)
+     ``Evaluator.evaluate_nq`` over 21,015,324 x 768 bf16 rows with RQ
+     structure made on the card in CSR order (phase 5's recipe, the
+     leaves scaled to the rows), (a)'s trained NCI and bf16
+     ``question_model.`` tower, the 3,610 questions at batch 512,
+     ``InferConfig`` defaults (10 beams, cap 4096, pool 1000), each
+     question's answering passage planted at a drawn rank below 150 of
+     the plain pool of its beams; gates: every planted rank found (ties
+     aside) and the hit rates the planted shares, the coarse hit 1 for
+     every planted question, the whole report equal to a numpy
+     recomputation from the kept results, one batch's pool against the
+     plain v3, v3 launched; one launch at cap 4096 timed alone.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
 with the int8 run under ``int8`` and the float32 run under ``f32``;
-phase 9's and 11's launches summed over their ranks; phases 10's and
-11's under ``launches_by_path``, bf16, int8 and f32); the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a card or if
-any phase fails.
+phase 9's and 11's launches summed over their ranks; phases 10's,
+11's and 12's under ``launches_by_path``, bf16, int8 and f32); the last
+line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
+card or if any phase fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -244,28 +271,30 @@ REPLACES = {
 BUILD = dict(config="configs/marco_rq4x5.json", seed=42, iters=25,
              noise=0.1, assign_rows=262_144, topk_rows=65_536, topk=10,
              adc_queries=512, adc_k=1000, hier_rows=65_536, hier_k=30,
-             hier_c=30, hier_iters=10, center_budget_s=300.0,
-             center_reduced_rows=1_048_576)
+             hier_c=30, hier_iters=10, center_rows=1_048_576)
 SYNTH = dict(seed=0, fit_sample=500_000, fit_iters=8, check_rows=65_536,
              ceiling_queries=512, ceiling_dropout=0.3, f32_tol=2e-5,
              bf16_tie=2e-2)
-# 153,600 queries = 300 steps at the config's batch 512; the twin and
-# joint steps are cut to batch 64 (512 documents of 128 tokens through
-# a 12 + 12 T5 tower) from the config's 512
-TRAIN7 = dict(config="configs/marco_rq4x5.json", train_queries=153_600,
-              steps=300, dev_queries=1024, dropout=0.1, bf16_gap=0.02,
+# 76,800 queries = 150 steps at the config's batch 512 (300 steps until
+# phase 12 needed the room: 60.7-64.4 s for phase 7); the twin and joint
+# steps are cut to batch 64 (512 documents of 128 tokens through a 12 +
+# 12 T5 tower) from the config's 512
+TRAIN7 = dict(config="configs/marco_rq4x5.json", train_queries=76_800,
+              steps=150, dev_queries=1024, dropout=0.1, bf16_gap=0.02,
               twin_batch=64, co_neg=7, doc_len=128)
-# phase 8: 65,536 passages and 16,384 + 1,024 queries cut from MS
-# MARCO's 8.8M and 502,939 + 6,980, and build-hier on 16,384 rows, for
-# the script's time (at 131,072 / 65,536 / 65,536 phase 8 took 315 s);
-# the models keep their widths
-PIPE8 = dict(config="configs/marco_rq4x5.json", passages=65_536, words=32,
+# phase 8: 16,384 passages and 4,096 + 1,024 queries cut from MS MARCO's
+# 8.8M and 502,939 + 6,980, build-hier on all 16,384 rows, 4 joint steps
+# and 64 doc2query passages, for the script's time (phase 12 runs the same
+# commands over 65,536 passages in the BERT family; at 65,536 passages,
+# 16,384 + 1,024 queries, 20 joint steps and 512 doc2query passages
+# phase 8 took 168-199 s); the models keep their widths
+PIPE8 = dict(config="configs/marco_rq4x5.json", passages=16_384, words=32,
              vocab_words=30_000, zipf_a=1.1, query_words=6,
-             train_queries=16_384, dev_queries=1_024, doc_len=128, qlen=32,
+             train_queries=4_096, dev_queries=1_024, doc_len=128, qlen=32,
              check_rows=1_024, emb_tol=2e-2, rq_iters=25, eval_batch=512,
-             joint_steps=20, joint_batch=64, joint_dev=256, co_neg=7,
+             joint_steps=4, joint_batch=64, joint_dev=256, co_neg=7,
              trie_rows=16_384, trie_queries=512, hier_k=30, hier_c=30,
-             decode_tol=1e-3, brute_block=4096, d2q_passages=512, d2q_n=10,
+             decode_tol=1e-3, brute_block=4096, d2q_passages=64, d2q_n=10,
              d2q_qlen=64, d2q_batch=128, greedy_rows=64, repair_docs=16)
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
@@ -1093,7 +1122,7 @@ def build_phase(cfg, seed, dev, qtower, nci):
          corpus_gb=emb.numel() * 2 / 1e9, setup_s=time.perf_counter() - t0,
          allocated_gb_before=torch.cuda.memory_allocated() / 1e9)
 
-    arts, build_s = build_once("5_build", cfg5, emb, dev)
+    arts, _ = build_once("5_build", cfg5, emb, dev)
     profile_lloyd(emb, arts, dev)
     emit(phase="5a_assign", **check_assign("5a", emb, arts, dev,
                                            BUILD["assign_rows"]))
@@ -1126,17 +1155,14 @@ def build_phase(cfg, seed, dev, qtower, nci):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the center_levels build (scripts/quality_full.py's path): full
-    # width if it is expected to keep phase 5 under its budget
-    full = (time.perf_counter() - t_phase + 1.5 * build_s
-            < BUILD["center_budget_s"])
-    n_c = emb.shape[0] if full else BUILD["center_reduced_rows"]
+    # the center_levels build (scripts/quality_full.py's path) on the
+    # first 1,048,576 rows (full width until phase 12 needed the room:
+    # 13.7-14.2 s)
+    n_c = BUILD["center_rows"]
     cfg_c = dataclasses.replace(cfg5, rq=dataclasses.replace(
         cfg5.rq, center_levels=True))
-    arts_c, _ = build_once("5_build_center_levels" if full else
-                           "5_build_center_levels_reduced_rows", cfg_c,
-                           emb[:n_c], dev)
-    emit(phase="5a_assign_center_levels", reduced=not full,
+    arts_c, _ = build_once("5_build_center_levels", cfg_c, emb[:n_c], dev)
+    emit(phase="5a_assign_center_levels",
          **check_assign("5a_center", emb, arts_c, dev,
                         min(BUILD["assign_rows"], n_c)))
     del arts_c
@@ -1160,7 +1186,7 @@ def build_phase(cfg, seed, dev, qtower, nci):
          max_len=max(lens), mean_len=sum(lens) / n_h, reduced=True)
     emit(phase="5_done", seconds=time.perf_counter() - t_phase,
          level0_purity=purity,
-         center_levels_rows=n_c, center_levels_reduced=not full,
+         center_levels_rows=n_c,
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
     return n_build
 
@@ -1568,7 +1594,7 @@ def coarse_quality(codes, gold_codes):
 def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
     """Phase 7 over phase 6's corpus: (a) the ``train`` command on the
     card (``configs/marco_rq4x5.json`` in bf16 compute, dropout 0.1,
-    153,600 queries of the query language, 300 steps at batch 512, the
+    76,800 queries of the query language, 150 steps at batch 512, the
     1,024-query dev probe); (b) the best tag restored bit for bit; (c)
     the first batch in bf16 compute against float32 on the initial
     weights; (d) a bf16 copy of the trained NCI, and of its initial
@@ -1989,6 +2015,25 @@ def quiet(fn, *a):
     return res, out.getvalue(), err.getvalue()
 
 
+@contextlib.contextmanager
+def no_transformers():
+    """``import transformers`` fails for the span of the block: this
+    machine has no HF tokenizer files, so the CLI's tokenizer falls back
+    to the hash stub, here without first importing transformers (7-15 s
+    a process on the card's host).  Only that entry of ``sys.modules``
+    is touched."""
+    missing = object()
+    saved = sys.modules.get("transformers", missing)
+    sys.modules["transformers"] = None
+    try:
+        yield
+    finally:
+        if saved is missing:
+            del sys.modules["transformers"]
+        else:
+            sys.modules["transformers"] = saved
+
+
 def observe_steps(module, name, record):
     """Patch ``module.name`` (a step factory) so that each step it makes
     is bracketed by CUDA events and keeps its loss on the card and the
@@ -2054,11 +2099,9 @@ def pipeline_phase(cfg, seed, dev):
     from mevi_tpu_torch.decode.brute import brute_force_topk
     from mevi_tpu_torch.decode.generate import _lm_logits, generate
     from mevi_tpu_torch.decode.trie import trie_beam_search
-    from mevi_tpu_torch.eval import searcher
     from mevi_tpu_torch.models import convert
     from mevi_tpu_torch.models.nci import NCIDims, NCIT5
     from mevi_tpu_torch.models.t5 import T5Dims, T5Model
-    from mevi_tpu_torch.ops.bucket import bucket_scores_v3_plain
     from mevi_tpu_torch.train import joint as J
     from mevi_tpu_torch.train import trainer as T
     from mevi_tpu_torch.train.checkpoints import (CheckpointManager,
@@ -2290,14 +2333,8 @@ def pipeline_phase(cfg, seed, dev):
                 torch.from_numpy(res["query_ids"][:B]).to(dev),
                 torch.from_numpy(res["query_mask"][:B]).to(dev))
         kern = ev._rerank(qemb, b0.beam_codes)
-        real = searcher.bucket_scores_v3
-        searcher.bucket_scores_v3 = (
-            lambda semb, s, e, q, cap, align, device=None:
-            bucket_scores_v3_plain(semb, s, e, q, cap, align))
-        try:
+        with plain_v3():
             plain_pool = ev._rerank(qemb, b0.beam_codes)
-        finally:
-            searcher.bucket_scores_v3 = real
         err, n_sep = compare_pools(
             "8e_plain_bucket", (torch.from_numpy(kern[0]),
                                 torch.from_numpy(kern[1])),
@@ -2918,6 +2955,7 @@ def sharded_phase(cfg, seed, dev, corpus, nci_path):
         return res[0]
 
     # ---- (a) bf16, then (c) NCCL at world 1 over the same matrix --------
+    alloc0 = torch.cuda.memory_allocated()
     semb = timed(secs, "fill_bf16_s", lambda: synth.fill_sorted_matrix(
         spec, corpus["tables"], draws, doc_ids, n_pad_rows=cap + 8,
         dtype=torch.bfloat16, device=dev))
@@ -2940,9 +2978,18 @@ def sharded_phase(cfg, seed, dev, corpus, nci_path):
     emit(phase="9c_nccl", backends=rc["backends"], v3_launches=rc["launches"],
          max_abs_pool_err_vs_oracle=e9c, ids_compared=n9c,
          launch_s=secs["rank_9c_s"])
+    fill_gb = semb.numel() * semb.element_size() / 1e9
     del semb, ref
     gc.collect()
     torch.cuda.empty_cache()
+    # the parent's fill, shared with the ranks through CUDA IPC, is freed
+    # once they have exited and it is dropped here
+    gap = (torch.cuda.memory_allocated() - alloc0) / 1e9
+    emit(phase="9_ipc_release", fill_gb=fill_gb,
+         allocated_before_fill_gb=alloc0 / 1e9, gap_after_free_gb=gap)
+    if gap >= 1.0:
+        raise AssertionError(f"9: {gap:.2f} GB of the shared fill stayed "
+                             "allocated after the ranks exited")
 
     # ---- (b) the int8 fill (phase 6c's quantization) ---------------------
     q_scale = 126.0 / synth.rows_abs_max(corpus["tables"], draws,
@@ -3060,8 +3107,8 @@ def trees_equal(tag, a, b):
 
 # 10a's cuts, of depth only (the model, tower and RQ widths are the
 # JAX script's full ones): 153,600 documents of 1,000,000, one utterance
-# a document of 4 and one epoch of 8 (300 steps at batch 512, phase 7's
-# size), 800 tower steps of 24,000 (the tower's dev exact-MIPS
+# a document of 4 and one epoch of 8 (300 steps at batch 512), 800
+# tower steps of 24,000 (the tower's dev exact-MIPS
 # recall@100 reaches ~0.05, against 0.002 after 200), 512 dev queries of
 # 2,048
 QUAL10 = dict(QF_NDOC="153600", QF_UTT="1", QF_EPOCHS="1", QF_BATCH="512",
@@ -3271,13 +3318,15 @@ def scripts_phase(cfg, dev, workdir):
 # NQ scale, the quality demo, the coarse-stage profilers)
 # ---------------------------------------------------------------------------
 
-# the time limit's cuts, of depth only: 11c: the JAX curve's four sizes,
+# the time limit's cuts, of depth only: 11c: the ends of the JAX curve's
+# four sizes (all four until phase 12 needed the room: 107.5-135.5 s),
 # int8, each a bench process with 2 timed batches of its 20; 11d: the
-# true NQ rows at d 768, not cut; 11e: 300 DEMO_STEPS of 4,000
-SCALE11 = dict(sizes=(1_000_000, 2_210_455, 4_420_911, 8_841_823),
+# true NQ rows at d 768, not cut; 11e: 100 DEMO_STEPS of 4,000 (300
+# until phase 12)
+SCALE11 = dict(sizes=(1_000_000, 8_841_823),
                dtype="int8", nbatch=2, timeout=900)
 NQ11 = dict(ndoc=21_015_324, d=768, plain_atol=1e-3, timeout=900)
-DEMO11 = dict(steps=300)
+DEMO11 = dict(steps=100)
 
 
 def sharded_stage_phase(dev, workdir):
@@ -3345,9 +3394,8 @@ def scaling_phase(cfg, dev, workdir):
 
 def nq_phase(dev):
     """11d: ``nq_scale_demo`` at 21,015,324 rows and d 768: the mesh stage
-    in a process of its own (ranks sharing the card; the parent's fill
-    would stay allocated after IPC ranks exit), then stream and adc in
-    this one.  Gates: the mesh pool within 1e-3 of the plain v3 over the
+    in a process of its own (ranks sharing the card), then stream and
+    adc in this one.  Gates: the mesh pool within 1e-3 of the plain v3 over the
     same rows, the rows and width, v3 launched.  Returns the mesh
     stage's v3 launches."""
     from mevi_tpu_torch.scripts import nq_scale_demo as nq
@@ -3462,6 +3510,678 @@ def rest_phase(cfg, dev, workdir):
     emit(phase="11_total", seconds=time.perf_counter() - t_phase)
     return ({"11a_sharded_parity_f32": n_a},
             {**n_c, "11d_nq_mesh_int8": n_d})
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the NQ-DPR configuration
+# ---------------------------------------------------------------------------
+
+# 12a: NQ's raw layouts cut in scale to phase 8's 65,536 passages (of
+# 21,015,324) and 16,384 training items (of nq-train's 58,880), with all
+# 3,610 of nq-test's questions; one training epoch (the config's 120)
+NQ12 = dict(config="configs/nqdpr_rq4x5.json", passages=65_536, words=100,
+            vocab_words=30_000, zipf_a=1.1, title_words=3, common_words=5,
+            train_items=16_384, test_questions=3_610, question_words=8,
+            check_rows=1_024, emb_tol=2e-2, pool_batch=512, plain_atol=1e-3,
+            timeout=900)
+# 12b: NQ's corpus size, its leaves as phase 5's (305,777 of 32^4 at
+# 8,841,823 rows, scaled to the rows), one answering passage a query
+# planted at a drawn rank of the plain pool
+NQ12B = dict(ndoc=21_015_324, nonempty=726_790, sigma=1.9, noise=0.1,
+             plant_ranks=150, batch=512, plain_atol=1e-3, kernel_reps=10)
+NQ_SCRIPT = "mevi_tpu_torch/scripts/nqdpr_pipeline.sh"
+HF_BERT_LAYER = {"attn.query": "attention.self.query",
+                 "attn.key": "attention.self.key",
+                 "attn.value": "attention.self.value",
+                 "attn.out": "attention.output.dense",
+                 "attn.norm": "attention.output.LayerNorm",
+                 "ff_intermediate": "intermediate.dense",
+                 "ff_out": "output.dense", "ff_norm": "output.LayerNorm"}
+HF_BERT_EMB = {"word": "word_embeddings", "position": "position_embeddings",
+               "token_type": "token_type_embeddings", "norm": "LayerNorm"}
+
+
+def synth_nq_raw(root, P, seed):
+    """NQ's three raw files in DPR's published layouts, from the seed:
+    ``psgs_w100.tsv`` (header ``id text title``, 1-based ids, ~100 Zipf
+    words a passage), ``biencoder-nq-train.json`` (question: words of its
+    gold passage; answers; its positive context with ``passage_id``,
+    title and text; the negative lists, which the port reads no more
+    than the reference does, empty) and
+    ``nq-test.qa.csv`` (question, tab, a Python list literal of its
+    answer: a 2-3 word span of its gold passage, which any passage
+    holding the span also answers).  Returns the test questions' gold
+    passages (0-based)."""
+    rng = np.random.default_rng(seed)
+    n, nw = P["passages"], P["words"]
+    rank = np.arange(1, P["vocab_words"] + 1, dtype=np.float64)
+    p = rank ** -P["zipf_a"]
+    p /= p.sum()
+    words = np.array([f"w{i}" for i in range(P["vocab_words"])])
+    lens = rng.integers(nw - 10, nw + 11, n)
+    idx = rng.choice(len(words), (n, nw + 10), p=p)
+    draw = words[idx]
+    titles = [" ".join(t) for t in
+              words[rng.choice(len(words), (n, P["title_words"]), p=p)]]
+    texts = [" ".join(draw[i, :lens[i]]) for i in range(n)]
+    os.makedirs(root, exist_ok=True)
+    with open(osp.join(root, "psgs_w100.tsv"), "w") as fw:
+        fw.write("id\ttext\ttitle\n")
+        fw.writelines(f"{i + 1}\t{texts[i]}\t{titles[i]}\n"
+                      for i in range(n))
+
+    def question(g):
+        pos = np.sort(rng.choice(lens[g], P["question_words"],
+                                 replace=False))
+        return " ".join(draw[g, pos])
+
+    def answer(g):
+        # NQ's answers are names and numbers, not function words: the
+        # span holds none of the ``common_words`` most frequent words
+        m = int(rng.integers(2, 4))
+        ok = np.nonzero(np.lib.stride_tricks.sliding_window_view(
+            idx[g, :lens[g]], m).min(1) >= P["common_words"])[0]
+        s = int(ok[rng.integers(0, len(ok))]) if len(ok) else 0
+        return " ".join(draw[g, s:s + m])
+
+    def ctx(i):
+        return {"title": titles[i], "text": texts[i], "score": 0,
+                "title_score": 0, "passage_id": str(i + 1)}
+    gold = rng.integers(0, n, P["train_items"])
+    items = [{"dataset": "nq_train_psgs_w100", "question": question(g),
+              "answers": [answer(g)], "positive_ctxs": [ctx(g)],
+              "negative_ctxs": [], "hard_negative_ctxs": []}
+             for g in gold]
+    with open(osp.join(root, "biencoder-nq-train.json"), "w") as fw:
+        json.dump(items, fw)
+    test = rng.integers(0, n, P["test_questions"])
+    with open(osp.join(root, "nq-test.qa.csv"), "w") as fw:
+        fw.writelines(f"{question(g)}\t{[answer(g)]!r}\n" for g in test)
+    return test
+
+
+@torch.no_grad()
+def hf_bert_init_(model, seed):
+    """Seeded random weights with the distribution of HF
+    ``BertPreTrainedModel._init_weights`` (initializer range 0.02):
+    linear and embedding weights N(0, 0.02^2), the word table's padding
+    row (id 0) zero, biases 0, LayerNorm weights 1 and biases 0."""
+    g = torch.Generator(device=model.embeddings.word.weight.device)
+    g.manual_seed(seed)
+    for n, p in model.named_parameters():
+        if n.split(".")[-2].endswith("norm"):
+            p.fill_(1.0 if n.endswith("weight") else 0.0)
+        elif n.endswith("bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, 0.02, generator=g)
+    model.embeddings.word.weight[0].zero_()
+    return model
+
+
+def hf_bert_state_dict(model, seed):
+    """The port's ``BertEncoderModel`` state dict under HF ``BertModel``
+    names (no ``transformers`` here: the names are spelled out), with a
+    seeded pooler, which AR2's towers carry and the CLS twin tower does
+    not read."""
+    out = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "embeddings":
+            out[f"embeddings.{HF_BERT_EMB[parts[1]]}.{parts[2]}"] = t
+        else:
+            sub = HF_BERT_LAYER[".".join(parts[2:-1])]
+            out[f"encoder.layer.{parts[1]}.{sub}.{parts[-1]}"] = t
+    w = model.embeddings.word.weight
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    d = model.dims.d_model
+    out["pooler.dense.weight"] = torch.randn(
+        (d, d), generator=g, device=w.device) * 0.02
+    out["pooler.dense.bias"] = torch.zeros(d, device=w.device)
+    return out
+
+
+def bert_tower_flops(dims, n, L):
+    """Forward matmul FLOPs of the BERT tower over ``n`` rows of ``L``
+    tokens: Q, K, V and output projections, scores and context, the
+    feed-forward pair."""
+    d, T = dims.d_model, n * L
+    return dims.num_layers * (8 * T * d * d + 4 * T * L * d
+                              + 4 * T * d * dims.d_ff)
+
+
+@contextlib.contextmanager
+def plain_v3():
+    """``eval.searcher``'s bucket stage through the plain PyTorch version
+    of v3 (no kernel launched) for the span of the block, in float32
+    whatever autocast the caller runs under (the kernel accumulates in
+    float32)."""
+    from mevi_tpu_torch.eval import searcher
+    from mevi_tpu_torch.ops.bucket import bucket_scores_v3_plain
+
+    def plain(semb, s, e, q, cap, align, device=None):
+        with torch.autocast(semb.device.type, enabled=False):
+            return bucket_scores_v3_plain(semb, s, e, q, cap, align)
+    with mock.patch.object(searcher, "bucket_scores_v3", plain):
+        yield
+
+
+def rank_metrics(ranks, ks):
+    """Recall, MRR and hit rate at each k of one answer a query, from its
+    first answering rank (-1: none), as ``eval.metrics`` defines them."""
+    r = np.asarray(ranks)
+    out = {"recall": {}, "mrr": {}, "hitrate": {}}
+    for k in ks:
+        hit = (r >= 0) & (r < k)
+        out["recall"][k] = out["hitrate"][k] = float(hit.mean())
+        out["mrr"][k] = float(np.where(hit, 1.0 / (np.maximum(r, 0) + 1),
+                                       0.0).mean())
+    return out
+
+
+def nq_report_recomputed(save_base, codes, inv_offsets, inv_array,
+                         recall_num, nrs):
+    """The ``eval --nq_answer_*`` report recomputed in numpy from what the
+    run wrote: each query's beam codes (coarse tsv), its ndoc and ranked
+    ids (fine tsv), the documents' codes and the inverse doc ->
+    answering-query arrays.  A query hits at its first beam whose code is
+    an answering document's, and at its first answering document."""
+    doc_of = np.repeat(np.arange(len(inv_offsets) - 1),
+                       np.diff(inv_offsets.astype(np.int64)))
+    order = np.argsort(inv_array, kind="stable")
+    q_s, d_s = inv_array[order], doc_of[order]      # pairs by query
+    coarse, fine, ndoc = [], [], []
+    with open(save_base + "_coarse.tsv") as fc, \
+            open(save_base + "_fine.tsv") as ff:
+        for q, (lc, lf) in enumerate(zip(fc, ff)):
+            lo, hi = np.searchsorted(q_s, [q, q + 1])
+            docs = d_s[lo:hi]
+            mine = {tuple(c) for c in codes[docs].tolist()}
+            beams = json.loads(lc.rstrip("\n").split("\t")[1])
+            coarse.append(next((b for b, c in enumerate(beams)
+                                if tuple(c) in mine), -1))
+            cols = lf.rstrip("\n").split("\t")
+            ndoc.append(int(cols[1]))
+            ans = set(docs.tolist())
+            fine.append(next((i for i, dd in enumerate(
+                json.loads(cols[2])) if dd in ans), -1))
+    ks_c = sorted({k for k in recall_num if k <= nrs} | {nrs})
+    return {"ndoc_per_query": float(np.mean(ndoc)),
+            "coarse": rank_metrics(coarse, ks_c),
+            "fine": rank_metrics(fine, recall_num)}
+
+
+def reports_equal(tag, got, want, tol=1e-12):
+    """A report (JSON keys as strings or ints) against a recomputed one."""
+    if abs(got["ndoc_per_query"] - want["ndoc_per_query"]) > tol:
+        raise AssertionError(f"{tag}: ndoc_per_query {got['ndoc_per_query']}"
+                             f" != {want['ndoc_per_query']}")
+    for level in ("coarse", "fine"):
+        for m, by_k in want[level].items():
+            for k, v in by_k.items():
+                g = got[level][m].get(k, got[level][m].get(str(k)))
+                if g is None or abs(g - v) > tol:
+                    raise AssertionError(f"{tag}: {level} {m}@{k} {g} != "
+                                         f"recomputed {v}")
+
+
+def nq_script_env(work, data, cfgp, log):
+    """The environment of the script's stages: ``python`` on PATH is this
+    interpreter behind a shim that appends each call's start, end, exit
+    code and arguments to ``log``; the checkout on PYTHONPATH; the
+    script's variables, ``--allow_hash_tokenizer`` where it tokenizes.
+    This machine has no HF tokenizer files, so ``transformers`` is
+    hidden from the stages: its import alone took ~15 s a process
+    before the tokenizer fell back to the stub all the same."""
+    from mevi_tpu_torch.scripts.int8_tax import PACKAGE_ROOT
+    bindir = osp.join(work, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    shim = osp.join(bindir, "python")
+    with open(shim, "w") as fw:
+        fw.write(f'#!/bin/sh\nt0=$(date +%s.%N)\n"{sys.executable}" "$@"\n'
+                 f'rc=$?\necho "$t0 $(date +%s.%N) $rc $*" >> "{log}"\n'
+                 'exit $rc\n')
+    os.chmod(shim, 0o755)
+    hidden = osp.join(work, "no_transformers", "transformers")
+    os.makedirs(hidden)
+    with open(osp.join(hidden, "__init__.py"), "w") as fw:
+        fw.write('raise ImportError("no HF tokenizer files to load")\n')
+    env = dict(os.environ, DATA_DIR=data, CFG=cfgp,
+               TOKENIZER_FLAGS="--allow_hash_tokenizer", DEVICE_FLAGS="",
+               HF_HUB_OFFLINE="1")
+    env["PATH"] = os.pathsep.join([bindir, env.get("PATH", "")])
+    env["PYTHONPATH"] = os.pathsep.join(
+        [osp.dirname(hidden), PACKAGE_ROOT]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    return env, osp.join(PACKAGE_ROOT, NQ_SCRIPT)
+
+
+def command_seconds(log):
+    """(command, seconds, exit code) of each shim call, in order."""
+    out = []
+    with open(log) as fr:
+        for ln in fr:
+            t0, t1, rc, *argv = ln.split()
+            name = "heredoc" if argv[:1] == ["-"] else argv[2]
+            if name == "tokenize":
+                name += " " + argv[argv.index("--kind") + 1]
+            out.append([name, float(t1) - float(t0), int(rc)])
+    return out
+
+
+def time_v3_launch(semb, off_d, cidx, q, cap, reps):
+    """v3 over the buckets ``cidx`` timed alone (CUDA events, the median
+    of ``reps`` bare launches, which the wrapper does not count), its
+    plain version's time, and the least time for the bytes it must move
+    (unique rows read once, queries and outputs) and its valid slots'
+    operations at the card's peaks."""
+    from mevi_tpu_torch.ops import bucket as B
+    from mevi_tpu_torch.scripts.profile_bucket import (BF16_FLOPS,
+                                                        HBM_BYTES_PER_S,
+                                                        bytes_of)
+    ci = cidx.long()
+    st, en = off_d[ci].contiguous(), off_d[ci + 1].contiguous()
+    ms = timed_ms(lambda: B._launch(semb, q, cap, 8, starts=st, ends=en),
+                  reps)
+    plain_ms = timed_ms(lambda: B.bucket_scores_v3_plain(semb, st, en, q,
+                                                         cap), 1)
+    G, d = q.shape
+    nb = bytes_of(st.cpu().numpy(), en.cpu().numpy(), cap, d,
+                  semb.element_size(), G, semb.shape[0], q.element_size())
+    by_bytes = nb["unique_rows"] / HBM_BYTES_PER_S * 1e3
+    by_ops = 2.0 * nb["valid_slots"] * d / BF16_FLOPS * 1e3
+    return dict(G=G, cap=cap, ms=ms, plain_ms=plain_ms,
+                valid_slots=nb["valid_slots"],
+                bytes_unique_rows=nb["unique_rows"],
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_ms_valid_rows=nb["valid_rows"] / HBM_BYTES_PER_S * 1e3,
+                library_ms=None)
+
+
+def nq_phase12(seed, dev):
+    """Phase 12: 12a, then 12b over 12a's models and queries, in a
+    temporary directory removed at the end.  Returns the v3 launches of
+    each path."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_nqdpr_")
+    try:
+        n_a, models = nq_pipeline_phase(seed, dev, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_b = nq_scale_phase(seed, dev, *models)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"12a_nq_pipeline_eval": n_a, "12b_evaluate_nq_21m": n_b}
+
+
+def nq_pipeline_phase(seed, dev, work):
+    """12a: the port's ``nqdpr_pipeline.sh`` in ``work``, stage by stage
+    (prepare, answers, index, train, eval), over NQ's raw layouts and an
+    AR2 checkpoint made from the seed, ``nqdpr_rq4x5.json`` with bf16
+    compute and one training epoch.  Gates: (i) 1,024 rows of
+    ``docemb.bin`` against a float32 recompute with the ``ctx_model.``
+    tower; (ii) the eval report equal to a numpy recomputation from the
+    written files; (iii) fine hitrate@100 above 0; (iv) one batch's pool
+    against the plain v3; (v) v3 launched.  Returns (the eval stage's
+    v3 launches, what phase 12b reads)."""
+    from mevi_tpu_torch.cli.main import (_dev_inputs, _load_nci,
+                                         _load_tower, load_config)
+    from mevi_tpu_torch.config import InferConfig
+    from mevi_tpu_torch.data import io as dio
+    from mevi_tpu_torch.eval.run_eval import Evaluator
+    from mevi_tpu_torch.eval.searcher import build_fine_index
+    from mevi_tpu_torch.models import convert
+    from mevi_tpu_torch.models.bert import BertDims, BertEncoderModel
+    from mevi_tpu_torch.train.trainer import compute_autocast
+    from mevi_tpu_torch.utils import native
+    from mevi_tpu_torch.utils.profiling import H100_SXM_BF16_DENSE_FLOPS
+    P = NQ12
+    t_phase = time.perf_counter()
+    data = osp.join(work, "nq")
+    j = lambda *a: osp.join(data, *a)          # noqa: E731
+    secs = {}
+    with open(P["config"]) as fr:
+        rawcfg = json.load(fr)
+    rawcfg["model"]["dtype"] = "bfloat16"
+    rawcfg["encoder"]["dtype"] = "bfloat16"
+    rawcfg["train"]["num_train_epochs"] = 1
+    cfgp = osp.join(work, "nqdpr_rq4x5.json")
+    with open(cfgp, "w") as fw:
+        json.dump(rawcfg, fw)
+    mcfg = load_config(cfgp)
+    enc = mcfg.encoder
+
+    # ---- raw files and the AR2 checkpoint ------------------------------
+    timed(secs, "write_raw_s", lambda: synth_nq_raw(j("raw"), P, seed + 121))
+    t0 = time.perf_counter()
+    bdims = BertDims(vocab_size=enc.vocab_size, d_model=enc.d_model,
+                     num_layers=enc.num_layers, num_heads=enc.num_heads,
+                     d_ff=enc.d_ff,
+                     max_position_embeddings=enc.max_position_embeddings,
+                     type_vocab_size=enc.type_vocab_size, dropout_rate=0.0)
+    ctx32 = hf_bert_init_(BertEncoderModel(bdims, device=dev), seed + 123)
+    q32 = hf_bert_init_(BertEncoderModel(bdims, device=dev), seed + 125)
+    sd = {}
+    for prefix, m, s in (("ctx_model.", ctx32, seed + 124),
+                         ("question_model.", q32, seed + 126)):
+        sd.update({prefix + k: v.cpu()
+                   for k, v in hf_bert_state_dict(m, s).items()})
+    split = convert.split_ar2_checkpoint(sd)
+    for side, m in (("passage", ctx32), ("query", q32)):
+        back = convert.convert_bert_model(split[side], bdims.num_layers)
+        if set(back) != set(m.state_dict()) or not all(
+                torch.equal(v, m.state_dict()[k].cpu())
+                for k, v in back.items()):
+            raise AssertionError(f"12a: HF names of the {side} tower do "
+                                 "not convert back")
+    os.makedirs(j("ckpts"))
+    pkl = j("ckpts", "ar2_nq.pkl")
+    torch.save({"model_dict": sd, "epoch": 0}, pkl)
+    del q32, sd, split, back
+    secs["write_checkpoint_s"] = time.perf_counter() - t0
+
+    # ---- the script, stage by stage ------------------------------------
+    log = osp.join(work, "commands.log")
+    env, script = nq_script_env(work, data, cfgp, log)
+    outs = {}
+    for stage in ("prepare", "answers", "index", "train", "eval"):
+        t0 = time.perf_counter()
+        r = subprocess.run(["bash", script, stage], cwd=work, env=env,
+                           capture_output=True, text=True,
+                           timeout=P["timeout"])
+        secs[f"stage_{stage}_s"] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"12a: stage {stage} rc={r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+        outs[stage] = r
+    cmds = command_seconds(log)
+    emit(phase="12a_stages", seconds=secs, commands=cmds)
+    out_e = outs["eval"].stdout
+    report = json.loads(out_e[out_e.index("{"):])
+    launched = [json.loads(ln) for ln in outs["eval"].stderr.splitlines()
+                if ln.startswith('{"bucket_launches"')]
+    n_eval = launched[-1]["bucket_launches"]["v3"] if launched else 0
+
+    # (i) the ctx tower's embeddings against a float32 recompute
+    n_docs = P["passages"]
+    emb = dio.open_embedding_memmap(j("ar2", "docemb.bin"), enc.d_model)
+    tok, msk = dio.open_token_memmaps(j("ar2", "all_document"),
+                                      enc.doc_length)
+    n_chk = P["check_rows"]
+    with torch.inference_mode():
+        ref = torch.cat([ctx32.cls_rep(
+            torch.from_numpy(np.array(tok[s:e], np.int64)).to(dev),
+            torch.from_numpy(np.array(msk[s:e], np.int64)).to(dev))
+            for s, e in ((s, min(s + 256, n_chk))
+                         for s in range(0, n_chk, 256))]).cpu().numpy()
+    del ctx32
+    got = np.asarray(emb[:n_chk])
+    rel = np.linalg.norm(got - ref, axis=1) / np.linalg.norm(ref, axis=1)
+    if not (emb.shape == (n_docs, enc.d_model) and np.isfinite(emb).all()):
+        raise AssertionError(f"12a: docemb {emb.shape} misshapen or not "
+                             "finite")
+    if not rel.max() <= P["emb_tol"]:
+        raise AssertionError(f"12a: bf16 embeddings {rel.max():.4f} off "
+                             f"the float32 recompute (> {P['emb_tol']})")
+    if int(np.asarray(tok).max()) >= enc.vocab_size:
+        raise AssertionError("12a: a token id past the BERT word table")
+
+    # (ii) the report against a recomputation from the written files
+    codes = np.load(j("ar2", "index", "rq_codes.npy"))
+    inv_off = np.fromfile(j("origin", "test_inverse_offsets.bin"), np.int64)
+    inv_arr = np.fromfile(j("origin", "test_inverse_array.bin"), np.int32)
+    icfg = InferConfig()
+    want = nq_report_recomputed(j("ar2", "nci_result_rq45_top10"), codes,
+                                inv_off, inv_arr, icfg.recall_num,
+                                icfg.num_return_sequences)
+    reports_equal("12a", report, want)
+    # (iii) the answers sit in their gold passages: some are found
+    hit100 = report["fine"]["hitrate"]["100"]
+    if not hit100 > 0:
+        raise AssertionError(f"12a: fine hitrate@100 {hit100}")
+    # (v) the eval stage went through the kernel
+    if n_eval == 0:
+        raise AssertionError(f"12a: the eval stage launched no v3: "
+                             f"{launched}")
+
+    # (iv) one batch's pool against the plain v3, in this process, with
+    # the models, index and queries the eval stage read
+    t0 = time.perf_counter()
+    nci = _load_nci(osp.join(work, "ckpts", "nci", "best"), mcfg, dev)
+    _, rep_fn = _load_tower(mcfg, pkl, "query", dev)
+    with no_transformers():
+        (queries, qids, qmask, _), _, _ = quiet(
+            _dev_inputs, j("origin", "test_queries.tsv"), mcfg, 32, True)
+    fine = build_fine_index(codes, np.asarray(emb), mcfg.rq.kary,
+                            dtype=torch.bfloat16, device=dev)
+    ev = Evaluator(nci, icfg, fine_index=fine, query_rep_fn=rep_fn,
+                   doc_codes=codes, device=dev)
+    B = P["pool_batch"]
+    with torch.inference_mode(), compute_autocast(dev, nci.dims.t5.dtype):
+        res = ev.run_batch(queries[:B], qids[:B], qmask[:B])
+        ids = torch.from_numpy(qids[:B]).to(dev)
+        qemb = rep_fn(ids, torch.from_numpy(qmask[:B]).to(dev))
+        kern = ev._rerank(qemb, res.beam_codes)
+        with plain_v3():
+            plain = ev._rerank(qemb, res.beam_codes)
+    err, n_sep = compare_pools(
+        "12a_plain_bucket", tuple(torch.from_numpy(x) for x in kern[:2]),
+        tuple(torch.from_numpy(x) for x in plain[:2]), P["plain_atol"])
+    secs["pool_check_s"] = time.perf_counter() - t0
+    del ev, fine
+
+    gen_s = sum(s for c, s, _ in cmds if c == "gen-embeddings")
+    flops = bert_tower_flops(bdims, n_docs, enc.doc_length)
+    n_pairs = len(inv_arr)
+    emit(phase="12a_nq_pipeline", passages=n_docs,
+         train_items=P["train_items"], test_questions=len(queries),
+         pool_check_s=secs["pool_check_s"], gen_embeddings_command_s=gen_s,
+         embeddings_per_s_command=n_docs / gen_s,
+         model_tflop=flops / 1e12,
+         bf16_dense_peak_share_command=flops / gen_s
+         / H100_SXM_BF16_DENSE_FLOPS,
+         native_library_loaded=native.ensure_built() is not None,
+         answer_pairs=n_pairs,
+         answering_passages=int((np.diff(inv_off) > 0).sum()),
+         check_rows=n_chk, max_row_rel_l2_err=float(rel.max()),
+         mean_row_rel_l2_err=float(rel.mean()), emb_tol=P["emb_tol"],
+         report=report, report_equals_recomputation=True,
+         fine_hitrate_at_100=hit100, v3_launches=n_eval,
+         plain_pool_max_abs_err=err, ids_compared=n_sep,
+         peak_device_gb_this_process=torch.cuda.max_memory_allocated()
+         / 1e9, phase_s=time.perf_counter() - t_phase, card=card_line())
+    return n_eval, (mcfg, nci, rep_fn, queries, qids, qmask)
+
+
+def nq_scale_phase(seed, dev, mcfg, nci, rep_fn, queries, qids, qmask):
+    """12b: ``Evaluator.evaluate_nq`` over 21,015,324 x 768 bf16 rows with
+    RQ structure (phase 5's recipe) made on the card in CSR order, 12a's
+    trained NCI and ``question_model.`` tower (bf16), the 3,610 test
+    questions at batch 512, ``InferConfig`` defaults.  Each query's
+    answering passage is planted at a drawn rank r of the plain pool of
+    its beams (plain v3 + ``merge_pool``).  Gates: the fine hit ranks are
+    the planted ones (ties aside), the coarse hit rate is 1 for every
+    planted query, the whole report equals a numpy recomputation from
+    the kept results, one batch's pool against the plain v3, v3
+    launched.  Returns the v3 launches of the evaluation."""
+    from mevi_tpu_torch.config import InferConfig
+    from mevi_tpu_torch.eval.ensemble import AnswerIndex
+    from mevi_tpu_torch.eval.run_eval import Evaluator, pad_batch
+    from mevi_tpu_torch.eval.searcher import FineIndex
+    from mevi_tpu_torch.index.csr import pack_codes, unpack_codes
+    from mevi_tpu_torch.train.trainer import compute_autocast
+    P = NQ12B
+    t_phase = time.perf_counter()
+    secs = {}
+    N, d, K, M = P["ndoc"], mcfg.rq.emb_size, mcfg.rq.kary, \
+        mcfg.rq.subvector_num
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+
+    # ---- the corpus, made in CSR order (no gathered second copy) -------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 131)
+    active = rng.choice(K ** M, size=P["nonempty"], replace=False)
+    w = rng.lognormal(0.0, P["sigma"], size=active.size)
+    sizes = np.zeros(K ** M, np.int64)
+    sizes[active] = rng.multinomial(N, w / w.sum())
+    offsets = np.zeros(K ** M + 1, np.int32)
+    np.cumsum(sizes, out=offsets[1:])
+    row_cluster = np.repeat(np.arange(K ** M), sizes)      # CSR order
+    doc_ids = rng.permutation(N).astype(np.int32)          # row -> doc
+    doc_cluster = np.empty(N, np.int64)
+    doc_cluster[doc_ids] = row_cluster
+    codes = unpack_codes(doc_cluster, M, K)
+    secs["codes_csr_host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    row_cluster = torch.from_numpy(row_cluster).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 131)
+    books = [torch.randn((K, d), generator=g, device=dev) * (0.5 ** lvl)
+             * d ** -0.5 for lvl in range(M)]
+    semb = torch.empty((N, d), dtype=torch.bfloat16, device=dev)
+    step = 1 << 18
+    for s in range(0, N, step):
+        c = unpack_codes(row_cluster[s:s + step].long(), M, K).long()
+        x = torch.randn((c.shape[0], d), generator=g, device=dev).mul_(
+            P["noise"] * d ** -0.5)
+        for lvl in range(M):
+            x += books[lvl][c[:, lvl]]
+        semb[s:s + c.shape[0]] = x.to(torch.bfloat16)
+    del row_cluster, books, x, c
+    torch.cuda.synchronize()
+    secs["fill_s"] = time.perf_counter() - t0
+    fine = FineIndex(torch.from_numpy(offsets).to(dev),
+                     torch.from_numpy(doc_ids).to(dev), semb, M, K,
+                     host_offsets=offsets, host_doc_ids=doc_ids)
+    icfg = InferConfig()
+    ev = Evaluator(nci, icfg, fine_index=fine, query_rep_fn=rep_fn,
+                   doc_codes=codes, device=dev)
+    n, Bq = len(queries), P["batch"]
+
+    # ---- the plain pools of the beams; plant the answers ---------------
+    t0 = time.perf_counter()
+    plain_s, plain_i, beams = [], [], []
+    with torch.inference_mode(), compute_autocast(dev, nci.dims.t5.dtype), \
+            plain_v3():
+        for s in range(0, n, Bq):
+            sl = slice(s, min(s + Bq, n))
+            (qi, qm), real = pad_batch([qids[sl], qmask[sl]], Bq)
+            r = ev._trimmed(ev.run_batch(queries[sl], qi, qm), real)
+            plain_s.append(r.fine_scores)
+            plain_i.append(r.fine_ids)
+            beams.append(r.beam_codes)
+    plain_s, plain_i = np.concatenate(plain_s), np.concatenate(plain_i)
+    beams = np.concatenate(beams)
+    secs["plain_pools_s"] = time.perf_counter() - t0
+    ranks = rng.integers(0, P["plant_ranks"], n)
+    doc = plain_i[np.arange(n), ranks]
+    beam_clusters = pack_codes(beams, K)
+    planted = (doc >= 0) & (beam_clusters == doc_cluster[np.maximum(
+        doc, 0)][:, None]).any(1)
+    qs = np.nonzero(planted)[0]
+    order = np.argsort(doc[qs], kind="stable")
+    inv_off = np.zeros(N + 1, np.int64)
+    np.cumsum(np.bincount(doc[qs], minlength=N), out=inv_off[1:])
+    inv_arr = qs[order].astype(np.int32)
+    aidx = AnswerIndex(inv_off, inv_arr)
+    inversion = {}
+    inner = aidx.query_clusters
+
+    def timed_inversion(*a):
+        t = time.perf_counter()
+        out = inner(*a)
+        inversion["query_clusters_s"] = time.perf_counter() - t
+        return out
+    aidx.query_clusters = timed_inversion
+
+    # ---- the evaluation through the kernel ------------------------------
+    ev.timings.clear()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with compute_autocast(dev, nci.dims.t5.dtype):
+        out = ev.evaluate_nq(queries, qids, qmask,
+                             query_indices=list(range(n)), answer_index=aidx,
+                             batch_size=Bq, keep_results=True)
+    wall = time.perf_counter() - t0
+    n_eval = read_counts()["v3"]
+    if n_eval == 0:
+        raise AssertionError("12b: the v3 kernel never launched")
+    coarse_s = sum(t["coarse_ms"] for t in ev.timings) / 1e3
+    fine_s = sum(t["fine_ms"] for t in ev.timings) / 1e3
+
+    # ---- gates ------------------------------------------------------------
+    ks_s = np.concatenate([r.fine_scores for r in out.results])
+    ks_i = np.concatenate([r.fine_ids for r in out.results])
+    k_beams = np.concatenate([r.beam_codes for r in out.results])
+    np.testing.assert_array_equal(k_beams, beams,
+                                  err_msg="12b: beams of the two passes")
+    err, n_sep = compare_pools(
+        "12b_plain_bucket", (torch.from_numpy(ks_s[:Bq]),
+                             torch.from_numpy(ks_i[:Bq])),
+        (torch.from_numpy(plain_s[:Bq]), torch.from_numpy(plain_i[:Bq])),
+        P["plain_atol"])
+    answer = np.where(planted, doc, -2)
+    found = ks_i == answer[:, None]
+    fine_rank = np.where(found.any(1), found.argmax(1), -1)
+    moved = np.nonzero(planted & (fine_rank != ranks))[0]
+    for q in moved:      # a tie: the planted score equals the one there
+        f = fine_rank[q]
+        if f < 0 or abs(plain_s[q, ranks[q]] - plain_s[q, f]) > \
+                P["plain_atol"]:
+            raise AssertionError(f"12b: query {q} planted at {ranks[q]} "
+                                 f"found at {f}")
+    want_cl = np.where(planted, doc_cluster[np.maximum(doc, 0)], -1)
+    hit_c = pack_codes(k_beams, K) == want_cl[:, None]
+    coarse_rank = np.where(hit_c.any(1), hit_c.argmax(1), -1)
+    if (coarse_rank[planted] < 0).any():
+        raise AssertionError("12b: a planted query's cluster left its "
+                             "beams")
+    want = {"ndoc_per_query": float(np.concatenate(
+        [r.ndoc for r in out.results]).mean()),
+        "coarse": rank_metrics(coarse_rank, sorted(
+            {k for k in icfg.recall_num if k <= icfg.num_return_sequences}
+            | {icfg.num_return_sequences})),
+        "fine": rank_metrics(fine_rank, icfg.recall_num)}
+    reports_equal("12b", {"ndoc_per_query": out.ndoc_per_query,
+                          "coarse": out.coarse, "fine": out.fine}, want)
+    share = {k: float((planted & (ranks < k)).mean())
+             for k in icfg.recall_num}
+    off = max(abs(out.fine["hitrate"][k] - share[k]) for k in share)
+    if off > len(moved) / n + 1e-12:
+        raise AssertionError(f"12b: hit rates {out.fine['hitrate']} off "
+                             f"the planted shares {share}")
+
+    # one launch over the first batch's buckets at cap 4096, timed alone
+    with torch.inference_mode(), compute_autocast(dev, nci.dims.t5.dtype):
+        q0 = rep_fn(torch.from_numpy(qids[:Bq]).to(dev),
+                    torch.from_numpy(qmask[:Bq]).to(dev))
+    q_rep = q0.to(semb.dtype).repeat_interleave(
+        icfg.num_return_sequences, 0).contiguous()
+    t_k = time_v3_launch(semb, fine.offsets, torch.from_numpy(
+        beam_clusters[:Bq].reshape(-1)).to(dev), q_rep,
+        icfg.max_cluster_docs, P["kernel_reps"])
+    emit(phase="12b_evaluate_nq", rows=N, d=d,
+         corpus_gb=semb.numel() * semb.element_size() / 1e9,
+         nonempty=P["nonempty"], cluster_sizes=cluster_stats(
+             offsets, icfg.max_cluster_docs), queries=n, batch=Bq,
+         beams=icfg.num_return_sequences, cap=icfg.max_cluster_docs,
+         pool=max(icfg.recall_num), seconds=secs,
+         inversion_s=inversion.get("query_clusters_s"),
+         evaluate_nq_s=wall, coarse_s=coarse_s, fine_s=fine_s,
+         host_outside_batches_s=wall - coarse_s - fine_s,
+         queries_per_s=n / wall, planted=int(planted.sum()),
+         moved_by_ties=len(moved), planted_share_below_k=share,
+         coarse=out.coarse, fine=out.fine,
+         ndoc_per_query=out.ndoc_per_query,
+         report_equals_recomputation=True, v3_launches=n_eval,
+         plain_pool_max_abs_err=err, ids_compared=n_sep,
+         v3_at_cap_4096=t_k, allocated_gb_at_start=base_gb,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase, card=card_line())
+    return n_eval
 
 
 def serve_phases(cfg, seed, dev, phase1_only=False):
@@ -3608,7 +4328,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
 
 def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
         phase8_only=False, phase9_only=False, phase10_only=False,
-        phase11_only=False):
+        phase11_only=False, phase12_only=False):
     from mevi_tpu_torch.ops import bucket as B
 
     dev = torch.device("cuda")
@@ -3628,9 +4348,15 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
         print(card_line(), flush=True)
         return 0
     if phase8_only:
-        out = pipeline_phase(cfg, seed, dev)
+        with no_transformers():
+            out = pipeline_phase(cfg, seed, dev)
         emit(total_s=time.perf_counter() - t_start,
              pipeline_v3_launches=out)
+        print(card_line(), flush=True)
+        return 0
+    if phase12_only:
+        out = nq_phase12(seed, dev)
+        emit(total_s=time.perf_counter() - t_start, nq_v3_launches=out)
         print(card_line(), flush=True)
         return 0
     # phase 10's bundle, read by phase 11, removed at the end
@@ -3662,7 +4388,7 @@ def run(cfg, seed, phase1_only=False, phase6_only=False, phase7_only=False,
 
 def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
                phase7_only, phase9_only):
-    """Phases 2-11 (or 6, 7, or 6a + 7 + 9 alone); the trained NCI of
+    """Phases 2-12 (or 6, 7, or 6a + 7 + 9 alone); the trained NCI of
     phase 7 passes to phase 9 through the file ``nci_path``, phase 10's
     bundle to phase 11 through ``workdir``."""
     if phase6_only or phase7_only or phase9_only:
@@ -3704,7 +4430,8 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
     corpus.pop("ref")
     gc.collect()
     torch.cuda.empty_cache()
-    n_pipe = pipeline_phase(cfg, seed, dev)
+    with no_transformers():
+        n_pipe = pipeline_phase(cfg, seed, dev)
     gc.collect()
     torch.cuda.empty_cache()
     n9, n9_int8, n9c = sharded_phase(cfg, seed, dev, corpus, nci_path)
@@ -3715,6 +4442,9 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
     gc.collect()
     torch.cuda.empty_cache()
     n11, n11_int8 = rest_phase(cfg, dev, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n12 = nq_phase12(seed, dev)
 
     kernels = []
     for mode in ("v3", "fused", "v2", "raw"):
@@ -3732,7 +4462,7 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
         if mode == "v3":
             entry["launches"] += n_build + n_synth + n_trained + sum(
                 n_pipe.values()) + n9 + n9c + sum(n10.values()) + sum(
-                n11.values())
+                n11.values()) + sum(n12.values())
             # phase 9: summed over the ranks
             entry["launches_by_path"] = {"serve": paths["v3"],
                                          "index_build_serve": n_build,
@@ -3740,7 +4470,7 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
                                          "7_trained_serve": n_trained,
                                          **n_pipe, "9_sharded_serve": n9,
                                          "9c_sharded_serve_nccl": n9c,
-                                         **n10, **n11}
+                                         **n10, **n11, **n12}
         r8 = p1_i8[mode]
         entry["int8"] = {k: r8[k] for k in (
             "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
@@ -3794,6 +4524,9 @@ def main(argv=None):
     ap.add_argument("--phase11-only", action="store_true",
                     help="build the kernels, run 10a (the bundle), then "
                          "phase 11 (the rest of the scripts) and stop")
+    ap.add_argument("--phase12-only", action="store_true",
+                    help="build the kernels, run phase 12 (the NQ-DPR "
+                         "configuration) and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3801,7 +4534,7 @@ def main(argv=None):
         return 2
     return run(FULL, args.seed, args.phase1_only, args.phase6_only,
                args.phase7_only, args.phase8_only, args.phase9_only,
-               args.phase10_only, args.phase11_only)
+               args.phase10_only, args.phase11_only, args.phase12_only)
 
 
 if __name__ == "__main__":

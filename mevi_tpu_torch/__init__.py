@@ -4,18 +4,18 @@ The JAX package stays the reference; this package mirrors its module
 layout (``mevi_tpu/X.py`` -> ``mevi_tpu_torch/X.py``) and never imports
 it, nor JAX.  Every public entry point takes an explicit ``device``,
 defaulting to ``"cuda"``; without a card it raises unless the caller
-passes ``device="cpu"`` (what the CPU tests do).
+passes ``device="cpu"`` (what the CPU tests do).  Importing the package
+imports no torch: the host-only parts (``data``, the CLI's host
+commands) start without it.
 """
 
 from __future__ import annotations
-
-import numpy as np
-import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for
     (the default) and no card is present."""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -35,6 +35,8 @@ def frozen_eval(module: torch.nn.Module) -> torch.nn.Module:
 def as_device_tensor(x, device) -> torch.Tensor:
     """A tensor or array on ``device`` (no copy when it is there already;
     a read-only array, such as a memmap, is copied on the host first)."""
+    import numpy as np
+    import torch
     if isinstance(x, torch.Tensor):
         return x.to(device)
     x = np.asarray(x)
@@ -46,4 +48,5 @@ def as_device_tensor(x, device) -> torch.Tensor:
 def synchronize(device: torch.device):
     """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
     if device.type == "cuda":
+        import torch
         torch.cuda.synchronize(device)

@@ -37,7 +37,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from ..config import MEVIConfig
 
@@ -115,6 +114,7 @@ def cmd_tokenize(args):
 def _time_ms(fn, dev, reps: int = 5) -> float:
     """Mean ms of ``reps`` calls after one warm-up: CUDA events on the
     card, the host clock on the CPU."""
+    import torch
     fn()
     if dev.type == "cuda":
         a = torch.cuda.Event(enable_timing=True)
@@ -135,6 +135,7 @@ def _load_tower(cfg, path, side, dev):
     """The twin tower of ``cfg.encoder`` with a torch checkpoint's weights
     (an AR2 / DPR dict gives its ``side``: 'passage' or 'query'), and its
     representation function under the tower's compute dtype."""
+    import torch
     from ..models import convert
     from ..models.twin_tower import tower_from_config
     from ..train.trainer import compute_autocast
@@ -156,6 +157,7 @@ def cmd_gen_embeddings(args):
     """Corpus token memmaps -> the float32 embedding memmap, through the
     T5 or BERT tower of a torch checkpoint (the ctx side of an AR2 one).
     ``--profile``: the tower's latency at batch 1-256 instead."""
+    import torch
     from .. import resolve_device
     from ..data import io as dio
     from ..index.build import embed_corpus
@@ -238,6 +240,7 @@ def _write_results(path, ids, scores, names=None):
 
 
 def cmd_search(args):
+    import torch
     from .. import resolve_device, synchronize
     from ..data import io as dio
     from ..ops.mips import mips_topk
@@ -308,6 +311,7 @@ def _nci_dims(cfg):
     """ModelConfig -> NCIDims honoring the reference's architecture flags
     (adaptor_decode -> PAWA on/off, feed_forward_proj,
     tie_decode_embedding; ``MEVI/main.py:755-779``)."""
+    import torch
     from ..models.nci import NCIDims
     from ..models.t5 import T5Dims
     m = cfg.model
@@ -332,6 +336,7 @@ def _dev_probe(args, model):
     ``--dev_codes``), or None: checkpoints rank on retrieval, not on the
     training loss (the reference's recall-monitored ModelCheckpoint,
     ``main.py:89-170``)."""
+    import torch
     if not (args.dev_queries and args.dev_codes):
         return None
     from ..decode.beam import nci_beam_search
@@ -361,6 +366,7 @@ def cmd_train(args):
     """NCI training (``marco_train_nci_rq.sh``): seeded init, AdamW label
     groups, per-epoch checkpoints ranked by the dev probe (or the loss),
     ``--resume``.  Returns the final ``TrainState``."""
+    import torch
     from .. import resolve_device
     from ..data import io as dio
     from ..data.datasets import NCIDataset, host_prefetch
@@ -459,6 +465,7 @@ def cmd_train_joint(args):
     Hungarian alignment, gradient accumulation and ``--resume``.  The
     first refit aligns to ``--codebooks`` / ``--codes`` when given.
     Returns the ``TrainLoop``."""
+    import torch
     import dataclasses
     from .. import resolve_device
     from ..data import io as dio
@@ -603,12 +610,18 @@ def cmd_train_joint(args):
 
 def _load_nci(path, cfg, dev):
     """The eval NCI: a ``CheckpointManager`` tag directory of the port
-    (``train``'s NCI or ``train-joint``'s ``nci.`` part) or a reference
-    Lightning checkpoint file (converted)."""
+    (``train``'s NCI or ``train-joint``'s ``nci.`` part; ``<dir>/best``
+    names the best tag of ``<dir>``, as ``--resume best`` does) or a
+    reference Lightning checkpoint file (converted)."""
     from ..models import convert
     from ..models.nci import NCIT5
-    from ..train.checkpoints import restore_tree_host
+    from ..train.checkpoints import CheckpointManager, restore_tree_host
     m = cfg.model
+    if osp.basename(path) == "best" and not osp.exists(path):
+        ck = CheckpointManager.from_dir(osp.dirname(path) or ".")
+        if ck.best_tag() is None:
+            raise FileNotFoundError(f"{path}: no checkpoint to call best")
+        path = osp.join(ck.directory, ck.best_tag())
     if osp.isdir(path):
         sd = restore_tree_host(osp.abspath(path))["model"]
         if any(k.startswith("nci.") for k in sd):
@@ -628,6 +641,7 @@ def cmd_eval(args):
     """Coarse/fine evaluation (the ``marco_eval_nci_rq.sh`` stage).
     Prints the JSON report; returns {report, evaluator, outputs,
     query_ids, query_mask, gts}."""
+    import torch
     from .. import resolve_device
     from ..config import InferConfig
     from ..data import io as dio
@@ -701,6 +715,11 @@ def cmd_eval(args):
     if out.fine:
         report["fine"] = out.fine
     print(json.dumps(report, indent=1, default=float))
+    # the bucket kernel's launches in this process so far (the plain
+    # version on the CPU launches none), for a caller in another process
+    from ..ops.bucket import bucket_scores_v3
+    print(json.dumps({"bucket_launches": {"v3": bucket_scores_v3.launches}}),
+          file=sys.stderr)
     if args.save_path:
         base = args.save_path.rsplit(".", 1)[0]
         write_result_files(out, gts, coarse_path=base + "_coarse.tsv",
@@ -719,6 +738,7 @@ def cmd_doc2query(args):
     the affected docs until every doc has ``n_gen_query`` usable queries
     (or ``--repair_rounds`` is spent).  Sampling draws from a
     ``torch.Generator`` seeded with ``--seed``."""
+    import torch
     from .. import resolve_device
     from ..data.tokenize import get_tokenizer
     from ..decode.generate import generate

@@ -25,6 +25,9 @@ _TOK_NAMES = {
     "cocondenser": "bert-base-uncased",
     "ar2": "bert-base-uncased",
 }
+# the stub's id range: the word table of the family each tokenizer feeds
+# (t5-base's 32128 rows, bert-base-uncased's 30522)
+_HASH_VOCAB = {"t5-base": 32128, "bert-base-uncased": 30522}
 
 
 class HashTokenizer:
@@ -105,7 +108,9 @@ def get_tokenizer(style: str = "ance", allow_hash_fallback: bool = False):
     cache (``local_files_only``: nothing is downloaded, unlike the JAX
     package's loader); HashTokenizer only when explicitly permitted
     (silent garbage tokenizations in offline CLI runs must be a hard
-    error)."""
+    error), its ids below the vocabulary of the tokenizer it stands in
+    for (the JAX package's stub draws BERT-style ids from T5's 32128,
+    past the BERT word table's 30522 rows)."""
     name = _TOK_NAMES.get(style, style)
     try:
         from transformers import AutoTokenizer
@@ -118,7 +123,7 @@ def get_tokenizer(style: str = "ance", allow_hash_fallback: bool = False):
             print(f"WARNING: HF tokenizer '{name}' unavailable ({e!r}); "
                   "using HashTokenizer (ids are NOT linguistic)",
                   file=sys.stderr)
-            return HashTokenizer()
+            return HashTokenizer(_HASH_VOCAB.get(name, 32128))
         raise RuntimeError(
             f"cannot load HF tokenizer '{name}' ({e!r}); pass "
             "--allow_hash_tokenizer to permit the offline stub") from e

@@ -51,8 +51,10 @@ def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32,
                       remat: bool = False) -> Tower:
     """Tower built from a :class:`mevi_tpu_torch.config.EncoderConfig`
     (dropout 0, as the JAX package builds it); ``enc_cfg.dtype`` is the
-    compute dtype, ``dtype`` the parameters'.  ``remat``: recompute each
-    T5 block in the backward (the BERT family has no remat)."""
+    compute dtype of either family (the JAX package's BERT tower ignores
+    it and computes in float32), ``dtype`` the parameters'.  ``remat``:
+    recompute each T5 block in the backward (the BERT family has no
+    remat)."""
     if enc_cfg.family == "t5":
         dims = T5Dims(
             d_model=enc_cfg.d_model, num_layers=enc_cfg.num_layers,
@@ -68,7 +70,8 @@ def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32,
         num_layers=enc_cfg.num_layers, num_heads=enc_cfg.num_heads,
         d_ff=enc_cfg.d_ff,
         max_position_embeddings=enc_cfg.max_position_embeddings,
-        type_vocab_size=enc_cfg.type_vocab_size, dropout_rate=0.0)
+        type_vocab_size=enc_cfg.type_vocab_size, dropout_rate=0.0,
+        dtype=_DTYPES[enc_cfg.dtype])
     return Tower("bert", BertEncoderModel(dims, device=device, dtype=dtype))
 
 

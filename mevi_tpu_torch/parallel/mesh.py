@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 import tempfile
 from typing import Callable, Dict, List, Optional, Sequence
@@ -260,7 +261,12 @@ def _local_device(device: str, rank: int) -> str:
     return f"cuda:{rank}" if device == "cuda" else device
 
 
-def _rank_main(rank, fn, world, backend, device, workdir, args):
+def _rank_main(rank, fn, world, backend, device, workdir, box):
+    # ``box`` (a one-element list) is the only holder of the arguments
+    # besides this frame: a CUDA tensor received through IPC keeps the
+    # sender's block allocated until the receiving storage is freed,
+    # which a process that exits holding it never does
+    args = box.pop()
     os.environ["LOCAL_RANK"] = str(rank)
     dev = _local_device(device, rank)
     if torch.device(dev).type == "cpu":
@@ -273,6 +279,8 @@ def _rank_main(rank, fn, world, backend, device, workdir, args):
         out = fn(torch.device(dev), *args)
     finally:
         dist.destroy_process_group()
+    del args
+    gc.collect()
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
 
 
@@ -297,7 +305,7 @@ def launch_local(fn: Callable, world: int, backend: str, device: str,
     resolve_device(device)
     with tempfile.TemporaryDirectory(dir=workdir) as wd:
         tmp.start_processes(_rank_main, args=(fn, world, backend, device, wd,
-                                              args),
+                                              [args]),
                             nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(wd, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]

@@ -4,6 +4,7 @@ point runs on the card unless it is given ``device="cpu"``."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -21,8 +22,9 @@ def _port_sources():
     return files + [ROOT / "chip_smoke.py"]
 
 
-def _imported_roots(path):
-    tree = ast.parse(path.read_text(), str(path))
+def _imported_roots(path, source=None):
+    tree = ast.parse(path.read_text() if source is None else source,
+                     str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
@@ -36,6 +38,25 @@ def _imported_roots(path):
 def test_no_jax_imports(path):
     bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
     assert not bad, f"{path} imports {bad}"
+
+
+def _shell_scripts():
+    return sorted((ROOT / "mevi_tpu_torch").rglob("*.sh"))
+
+
+@pytest.mark.parametrize("path", _shell_scripts(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_in_shell_scripts(path):
+    """A pipeline script of the port runs Python through its heredocs and
+    ``python -m``: neither reaches JAX or the JAX package."""
+    text = path.read_text()
+    bodies = [b for _, b in re.findall(r"<<\s*'?(\w+)'?\n(.*?)\n\1\n",
+                                       text, re.S)]
+    modules = re.findall(r"python3?\s+(?:-\S+\s+)*-m\s+([\w.]+)", text)
+    assert modules, f"{path} runs no module"
+    bad = {m.split(".")[0] for m in modules} | {
+        r for b in bodies for r in _imported_roots(path, b)}
+    assert not bad & set(FORBIDDEN), f"{path} reaches {bad & set(FORBIDDEN)}"
 
 
 def test_importing_the_port_loads_no_jax():
