@@ -28,8 +28,10 @@ Phases:
      bf16 queries over bf16 and int8 corpora, and float32 queries over a
      float32 copy (the instance phase 11a serves), with kernel / plain /
      yardstick times (CUDA events) and their bytes, achieved rate and
-     bounds; then ``scripts.profile_bucket.profile`` (the v2 path) over
-     the int8 corpus;
+     bounds; v3 and fused also at the Evaluator's cap
+     (``InferConfig().max_cluster_docs``, 4096) over the same buckets;
+     then ``scripts.profile_bucket.profile`` (the v2 path) over the int8
+     corpus;
   2. the main path: ``BucketServer`` with the NCI model (T5-base
      12 + 6 layers, PAWA 4 layers, kary 32, M 4) and the T5 query tower
      (12 + 12 layers), random bf16 weights from the seed, over
@@ -222,11 +224,13 @@ Phases:
      aside) and the hit rates the planted shares, the coarse hit 1 for
      every planted question, the whole report equal to a numpy
      recomputation from the kept results, one batch's pool against the
-     plain v3, v3 launched; one launch at cap 4096 timed alone.
+     plain v3, v3 launched; one launch at cap 4096 timed alone, and
+     ``merge_pool`` alone over its outputs.
 
 Prints JSON lines as it goes; before the last line the card's name and
 power limit and one JSON object of the kernels (the bf16 phase-1 run,
-with the int8 run under ``int8`` and the float32 run under ``f32``;
+with the int8 run under ``int8`` and the float32 run under ``f32``, the
+cap-4096 runs of v3 and fused under ``cap_4096``;
 phase 9's and 11's launches summed over their ranks; phases 10's,
 11's and 12's under ``launches_by_path``, bf16, int8 and f32); the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -296,6 +300,8 @@ PIPE8 = dict(config="configs/marco_rq4x5.json", passages=16_384, words=32,
              trie_rows=16_384, trie_queries=512, hier_k=30, hier_c=30,
              decode_tol=1e-3, brute_block=4096, d2q_passages=64, d2q_n=10,
              d2q_qlen=64, d2q_batch=128, greedy_rows=64, repair_docs=16)
+# bytes of gathered window a phase-1 yardstick block holds at most
+YARD_BYTES = 8.5e9
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
 
@@ -407,10 +413,11 @@ def phase1_cidx(rng, doc_cluster, offsets, G):
 # phase 1: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
-    """Every mode against its plain version on the phase-1 buckets;
-    kernel ms timed at the launch alone (the wrappers' bounds check, a
-    host sync, stays out)."""
+def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps,
+                 modes=("v3", "fused", "v2", "raw")):
+    """Each of ``modes`` against its plain version on the phase-1
+    buckets; kernel ms timed at the launch alone (the wrappers' bounds
+    check, a host sync, stays out)."""
     from mevi_tpu_torch.ops import bucket as B
     from mevi_tpu_torch.scripts.profile_bucket import bound_ms, bytes_of
     ci = cidx.long()
@@ -418,7 +425,8 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
     al = B.align_down(st)
     G, d = q.shape
     plain = B.bucket_scores_v3_plain(semb, st, en, q, cap)
-    plain_raw = B.bucket_scores_plain(semb, al, q, cap)
+    plain_raw = (B.bucket_scores_plain(semb, al, q, cap) if "raw" in modes
+                 else None)
     runs = {
         "v3": (lambda: B.bucket_scores_v3(semb, st, en, q, cap, device=dev),
                lambda: B._launch(semb, q, cap, 8, starts=st, ends=en)),
@@ -432,7 +440,8 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
                 lambda: B._launch_raw(semb, al, q, cap))}
     ok = plain[1] >= 0
     results = {}
-    for mode, (checked, bare) in runs.items():
+    for mode in modes:
+        checked, bare = runs[mode]
         out = checked()
         torch.cuda.synchronize()
         if mode == "raw":
@@ -448,16 +457,22 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
         results[mode] = dict(max_abs_err=err, ms=timed_ms(bare, reps))
     plain_ms = timed_ms(lambda: B.bucket_scores_v3_plain(
         semb, st, en, q, cap), 3)
-    plain_raw_ms = timed_ms(lambda: B.bucket_scores_plain(semb, al, q, cap),
-                            3)
+    plain_raw_ms = (timed_ms(lambda: B.bucket_scores_plain(semb, al, q, cap),
+                             3) if "raw" in modes else None)
+    # the gathered window in blocks of at most YARD_BYTES (one block at
+    # cap 512; 4-8 at cap 4096, whose whole window would take 32-64 GB)
+    per = max(1, int(YARD_BYTES // (cap * d * (semb.element_size() + (
+        q.element_size() if semb.dtype != q.dtype else 0)))))
 
     def yardstick():
         rows = (al.long()[:, None] + torch.arange(cap, device=dev)).clamp_(
             0, semb.shape[0] - 1)
-        block = semb.index_select(0, rows.reshape(-1)).view(G, cap, d)
-        if block.dtype != q.dtype:
-            block = block.to(q.dtype)
-        return torch.bmm(block, q.unsqueeze(-1))
+        for g0 in range(0, G, per):
+            r = rows[g0:g0 + per]
+            block = semb.index_select(0, r.reshape(-1)).view(-1, cap, d)
+            if block.dtype != q.dtype:
+                block = block.to(q.dtype)
+            torch.bmm(block, q[g0:g0 + per].unsqueeze(-1))
     yard_ms = timed_ms(yardstick, 5)
     nb = bytes_of(st.cpu().numpy(), en.cpu().numpy(), cap, d,
                   semb.element_size(), G, semb.shape[0], q.element_size())
@@ -491,7 +506,7 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps):
              yardstick="index_select + torch.bmm over the gathered "
                        "(G, cap, d) aligned window (unmasked: the raw "
                        "function; no single PyTorch call computes the "
-                       "masked one)")
+                       "masked one)", yardstick_blocks=-(-G // per))
     return results
 
 
@@ -3769,12 +3784,16 @@ def command_seconds(log):
     return out
 
 
-def time_v3_launch(semb, off_d, cidx, q, cap, reps):
+def time_v3_launch(semb, off_d, cidx, q, cap, reps, pool=None, beams=None,
+                   rank="score"):
     """v3 over the buckets ``cidx`` timed alone (CUDA events, the median
     of ``reps`` bare launches, which the wrapper does not count), its
     plain version's time, and the least time for the bytes it must move
     (unique rows read once, queries and outputs) and its valid slots'
-    operations at the card's peaks."""
+    operations at the card's peaks.  With ``pool``, also ``merge_pool``
+    timed alone over the kernel's outputs (``beams`` buckets a query), as
+    the fine stage runs it between the kernel and the host map."""
+    from mevi_tpu_torch.eval.searcher import merge_pool
     from mevi_tpu_torch.ops import bucket as B
     from mevi_tpu_torch.scripts.profile_bucket import (BF16_FLOPS,
                                                         HBM_BYTES_PER_S,
@@ -3790,7 +3809,14 @@ def time_v3_launch(semb, off_d, cidx, q, cap, reps):
                   semb.element_size(), G, semb.shape[0], q.element_size())
     by_bytes = nb["unique_rows"] / HBM_BYTES_PER_S * 1e3
     by_ops = 2.0 * nb["valid_slots"] * d / BF16_FLOPS * 1e3
-    return dict(G=G, cap=cap, ms=ms, plain_ms=plain_ms,
+    extra = {}
+    if pool is not None:
+        scores, rows = B._launch(semb, q, cap, 8, starts=st, ends=en)
+        nq = G // beams
+        extra["merge_pool_ms"] = timed_ms(lambda: merge_pool(
+            scores.reshape(nq, -1), rows.reshape(nq, -1), beams, cap, pool,
+            rank), reps)
+    return dict(G=G, cap=cap, ms=ms, plain_ms=plain_ms, **extra,
                 valid_slots=nb["valid_slots"],
                 bytes_unique_rows=nb["unique_rows"],
                 bound_ms=max(by_bytes, by_ops),
@@ -4162,7 +4188,8 @@ def nq_scale_phase(seed, dev, mcfg, nci, rep_fn, queries, qids, qmask):
         icfg.num_return_sequences, 0).contiguous()
     t_k = time_v3_launch(semb, fine.offsets, torch.from_numpy(
         beam_clusters[:Bq].reshape(-1)).to(dev), q_rep,
-        icfg.max_cluster_docs, P["kernel_reps"])
+        icfg.max_cluster_docs, P["kernel_reps"], pool=max(icfg.recall_num),
+        beams=icfg.num_return_sequences, rank=icfg.rank_mode)
     emit(phase="12b_evaluate_nq", rows=N, d=d,
          corpus_gb=semb.numel() * semb.element_size() / 1e9,
          nonempty=P["nonempty"], cluster_sizes=cluster_stats(
@@ -4190,6 +4217,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     its path, launches on the int8 paths, evaluation launches, (qtower,
     nci)), or None after phase 1 with ``phase1_only``; the corpus, its
     int8 copy and the servers are freed on return."""
+    from mevi_tpu_torch.config import InferConfig
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.build import quantize_int8
     from mevi_tpu_torch.ops import bucket as B
@@ -4214,16 +4242,29 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     cidx = torch.from_numpy(phase1_cidx(rng, doc_cluster, offsets, G)).to(dev)
     q = torch.randn((G, cfg["d"]), generator=torch.Generator(
         device=dev).manual_seed(seed + 3), device=dev).to(torch.bfloat16)
+    # v3 and fused also at the Evaluator's cap (InferConfig's
+    # max_cluster_docs, 4096), the cap of every evaluation path (4, 8e,
+    # 12a, 12b); serving runs cfg["cap"] (512)
+    cap_eval = InferConfig().max_cluster_docs
     p1 = check_kernel("bf16", semb, off_d, cidx, q, cfg["cap"], dev,
                       cfg["kernel_reps"])
+    p1["cap_eval"] = check_kernel("bf16", semb, off_d, cidx, q, cap_eval,
+                                  dev, cfg["kernel_reps"],
+                                  modes=("v3", "fused"))
     q8 = (q.float() / scale).to(torch.bfloat16)
     p1_i8 = check_kernel("int8", semb_i8, off_d, cidx, q8, cfg["cap"], dev,
                          cfg["kernel_reps"])
+    p1_i8["cap_eval"] = check_kernel("int8", semb_i8, off_d, cidx, q8,
+                                     cap_eval, dev, cfg["kernel_reps"],
+                                     modes=("v3", "fused"))
     # a float32 copy with float32 queries: the instance the sharded
     # stage of phase 11 serves (27 GB, freed at once)
     semb32 = semb.float()
     p1_f32 = check_kernel("f32", semb32, off_d, cidx, q.float(), cfg["cap"],
                           dev, cfg["kernel_reps"])
+    p1_f32["cap_eval"] = check_kernel("f32", semb32, off_d, cidx, q.float(),
+                                      cap_eval, dev, cfg["kernel_reps"],
+                                      modes=("v3", "fused"))
     del semb32
     torch.cuda.empty_cache()
     # the v2 kernel's path: the A/B entry point, over the int8 corpus
@@ -4459,6 +4500,11 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
             "bound_ms_full_window": r["bound_ms_full_window"]}
         if "bound_ms_valid_rows" in r:
             entry["bound_ms_valid_rows"] = r["bound_ms_valid_rows"]
+        keys = ("ms", "bound_ms", "bound_ms_valid_rows",
+                "bound_ms_full_window", "max_abs_err", "plain_ms",
+                "yardstick_ms")
+        if mode in p1["cap_eval"]:          # v3 and fused at cap 4096
+            entry["cap_4096"] = {k: p1["cap_eval"][mode][k] for k in keys}
         if mode == "v3":
             entry["launches"] += n_build + n_synth + n_trained + sum(
                 n_pipe.values()) + n9 + n9c + sum(n10.values()) + sum(
@@ -4472,9 +4518,7 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
                                          "9c_sharded_serve_nccl": n9c,
                                          **n10, **n11, **n12}
         r8 = p1_i8[mode]
-        entry["int8"] = {k: r8[k] for k in (
-            "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
-            "max_abs_err", "plain_ms", "yardstick_ms") if k in r8}
+        entry["int8"] = {k: r8[k] for k in keys if k in r8}
         entry["int8"]["launches_by_path"] = int8_paths.get(mode, {})
         if mode == "v3":
             entry["int8"]["launches_by_path"]["6c_synth_int8"] = n_synth8
@@ -4483,9 +4527,11 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
             entry["int8"]["launches_by_path"].update(n10_int8)
             entry["int8"]["launches_by_path"].update(n11_int8)
         rf = p1_f32[mode]
-        entry["f32"] = {k: rf[k] for k in (
-            "ms", "bound_ms", "bound_ms_valid_rows", "bound_ms_full_window",
-            "max_abs_err", "plain_ms", "yardstick_ms") if k in rf}
+        entry["f32"] = {k: rf[k] for k in keys if k in rf}
+        for sub, res in (("int8", p1_i8), ("f32", p1_f32)):
+            if mode in res["cap_eval"]:
+                entry[sub]["cap_4096"] = {k: res["cap_eval"][mode][k]
+                                          for k in keys}
         entry["f32"]["launches_by_path"] = (
             {"11a_sharded_parity_f32": n11["11a_sharded_parity_f32"]}
             if mode == "v3" else {})

@@ -5,6 +5,7 @@
 //   _kernel_v3    (bucket_scores_v3, bounds given)        -> bucket_kernel, kBounds
 //   _fused_kernel (bucket_scores_fused, offsets in-kernel) -> bucket_kernel, kFused
 //   _kernel       (bucket_scores, v1: raw window scores)   -> bucket_kernel, kRaw
+//                   (int8); raw_tile_kernel (bf16, f32)
 //   _kernel_v2    (bucket_scores_v2, double-buffered)      -> bucket_kernel_v2
 //
 // Masked modes (v3, fused, v2): for G (query, beam) buckets with CSR
@@ -28,44 +29,61 @@
 // window the TPU kernels DMA, and need no slack rows past the last real
 // row.  Raw mode reads the whole clipped window: G * cap * d * itemsize.
 //
-// bucket_kernel, bf16 and f32 corpora (v3, fused, raw; simple and right
-// first): one block per (bucket, tile of kTile window slots); the query
-// row is staged once in shared memory as float32; each warp takes one
-// slot at a time and its lanes stream the row as 16-byte vectors (8 bf16
-// or 4 f32), reduced with warp shuffles; lane 0 writes the score and row
-// id.
-//
-// bucket_kernel, int8 corpora (the overload on const int8_t*).  At one
-// byte an element, the one-row-per-warp loop above is bound by latency
-// and issue, not bytes: a warp holds one 768-byte row in flight and
-// waits out a shuffle tree and a store per row, each corpus vector
-// re-reads 16 query floats from shared memory, and each byte costs an
-// extract and an I2F (a quarter of the FMA rate).  The int8 design:
-//   1. rows in flight, query in registers: one block per bucket; a row is
-//      split over a group of `lanes` lanes (16 at d = 768, 3 vectors a
-//      lane), and each lane's source issues the loads of R = 4 rows before
-//      any arithmetic, so a warp can have 8 rows (6 KB) in flight.  The
-//      lane-to-vector map is fixed, so the lane's query slice (48 floats)
-//      is loaded into registers once a bucket.  One transposed butterfly
-//      reduces the R partial sums (R - 1 + log2(lanes / R) shuffles, 5
-//      for 4 rows) and leaves each row's sum on a lane of its own; those
-//      lanes store a warp's R * 32 / lanes contiguous slots with one
-//      instruction (32 bytes at d = 768), so no lane-0 stores and no
-//      staging in shared memory.  The query slice fits 128 registers for
-//      d <= 2048 (V <= 4 vectors a lane, i8_vectors); past that (V = 0)
-//      the row is taken in chunks of 4 vectors a lane and the query read
-//      from shared memory, in the same kernel.
-//   2. exact widening without I2F: byte b ^ 0x80 = b + 128 goes into the
-//      low mantissa byte of 2^23 with one PRMT, and an FADD of -(2^23 +
-//      128) leaves b exactly, so the scores equal the I2F ones up to the
-//      order of the float32 sums.
-//   3. outputs: all threads write the invalid slots first, coalesced, and
-//      an empty bucket exits after that fill; the warps then visit only
-//      the valid slots.
-// Occupancy: __launch_bounds__(256, 2) caps a thread at 128 registers
-// (d = 768: 112, no spills), so 16 warps an SM.  Under that cap ptxas
-// keeps 5 of a lane's 12 loads at d = 768 ahead of the first FMA and
-// interleaves the other 7 with the arithmetic.
+// bucket_kernel: one block per bucket, for every mode of an int8 corpus
+// and the masked modes (v3, fused) of a bf16 or f32 one.  A first,
+// simpler design (one block per (bucket, tile of 64 slots), one row per
+// warp at a time, lane 0 storing each slot) was bound by latency, issue and
+// block count, not bytes: a warp held one row in flight and waited out a
+// shuffle tree and two single-lane stores per slot, each corpus vector
+// re-read its query floats from shared memory, and at cap 4096, where
+// ~97% of the slots are empty, 64 blocks a bucket each only wrote -1e30 /
+// -1 with single-lane stores (1.2 ms against a 0.05 ms bound on an H100).
+// The design:
+//   1. outputs first: all threads write the invalid slots [0, j0) and
+//      [j1, cap) with 16-byte stores (float4 of -1e30, int4 of -1) where
+//      the output rows are 16-byte aligned (cap % 4 == 0), scalar stores at
+//      the ragged ends; an empty bucket exits after that fill, before its
+//      query is read; the warps then visit only the valid slots.  For bf16
+//      and f32 a window over kChunk = 1024 slots is split into one block
+//      a chunk (grid (G, ceil(cap / 1024))): at cap 4096 one block would
+//      otherwise stream a bucket of up to 4096 rows (6-12 MB) alone and
+//      end the grid late; at cap 512 nothing changes.  int8 keeps one
+//      block a bucket (its chunks cost more in extra blocks at 2 blocks an
+//      SM than they saved).
+//   2. rows in flight, query in registers: a row is split over a group of
+//      `lanes` lanes, each lane taking at most kMaxV of its nvec 16-byte
+//      vectors (8 bf16, 4 f32 or 16 int8 elements; row_lanes): at d = 768
+//      32 lanes x 3 vectors for bf16, 32 x 6 for f32, 16 x 3 for int8.
+//      Each lane's source issues the loads of R rows (4, or 2 when a lane
+//      holds 4 or more vectors) before any arithmetic: 12 loads, 6 KB in
+//      flight a warp at d = 768 for all three.  The lane-to-vector map is
+//      fixed, so the lane's query slice (24 floats for bf16 and f32 at
+//      d = 768, 48 for int8) is converted to float32 and loaded into
+//      registers once a bucket.  Past 32 * kMaxV vectors a row (bf16 d >
+//      1024, f32 d > 768, int8 d > 2048; V = 0) the row is taken in passes
+//      of 4 vectors a lane and the query read from shared memory, in the
+//      same kernel.  bf16 widens with __bfloat1622float2, f32 needs none.
+//   3. one transposed butterfly (reduce_rows) reduces a lane's R partial
+//      sums (R - 1 + log2(lanes / R) shuffles, 5 for 4 rows over 32 lanes)
+//      and leaves each row's sum on a lane of its own; those lanes store a
+//      warp's R * 32 / lanes contiguous slots (score and row id) with one
+//      instruction each, so no lane-0 stores and no staging in shared
+//      memory.
+//   4. int8 only: exact widening without I2F: byte b ^ 0x80 = b + 128
+//      goes into the low mantissa byte of 2^23 with one PRMT, and an FADD
+//      of -(2^23 + 128) leaves b exactly, so the scores equal the I2F ones
+//      up to the order of the float32 sums.
+// Bound: the valid rows' bytes (each unique row once) plus G * cap * 8
+// bytes of outputs at 3.35 TB/s; at cap 4096 the outputs dominate.
+// Occupancy: __launch_bounds__(256, Corpus<T>::kMinBlocks): int8 2 blocks
+// an SM (128 registers; 112 at d = 768), bf16 and f32 3 (80 registers at
+// d = 768, no spills), whose blocks are short at cap 4096 and gain from
+// more of them in flight (PERF.md lists the registers of each instance).
+// The raw mode of bf16 and f32 corpora keeps the tiled loop
+// (raw_tile_kernel, below): it scores every slot of the window and
+// reaches ~70% of its window bound.  No wgmma or TMA: a bucket is one
+// query against its own rows, a GEMV bound by bytes; tensor cores would
+// need several queries that share a cluster (left for later, below).
 //
 // bucket_kernel_v2 (replaces _kernel_v2, mevi_tpu/ops/bucket.py:206; the
 // design v2 set out to have on the TPU: this tile's compute overlaps the
@@ -96,8 +114,9 @@
 //   producer warp and full / empty mbarriers, measured no faster on an
 //   H100 (PERF.md), so the copies stay per-thread cp.async.
 //
-// Left for later work: wgmma, L2 reuse of hot clusters shared by several
-// queries, and coalesced score writes for the bf16 and f32 loops.
+// Left for later work: wgmma and L2 reuse of hot clusters shared by
+// several queries, and coalesced score writes for the raw tiled loop and
+// the bf16 and f32 instances of bucket_kernel_v2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,19 +140,46 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// 16 bytes of corpus row dotted with the matching float32 query values.
-__device__ __forceinline__ float dot16(const uint4& v, const float* q,
-                                       const float*) {
-  const float* f = reinterpret_cast<const float*>(&v);
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc = fmaf(f[i], q[i], acc);
-  return acc;
+// ---------------------------------------------------------------------------
+// bucket_kernel: one block per bucket, several rows in flight per warp
+// ---------------------------------------------------------------------------
+
+// Per corpus type: elements a 16-byte vector; the most vectors a lane
+// holds with their query values in registers (at most 32 query floats for
+// bf16 and f32, 64 for int8); blocks an SM (__launch_bounds__: 128
+// registers a thread for 2, 80 for 3); and whether a bucket's window is
+// split into blocks of kChunk slots.
+template <typename T>
+struct Corpus;
+template <>
+struct Corpus<int8_t> {
+  static constexpr int kEpv = 16, kMaxV = 4, kMinBlocks = 2;
+  static constexpr bool kChunked = false;
+};
+template <>
+struct Corpus<__nv_bfloat16> {
+  static constexpr int kEpv = 8, kMaxV = 4, kMinBlocks = 3;
+  static constexpr bool kChunked = true;
+};
+template <>
+struct Corpus<float> {
+  static constexpr int kEpv = 4, kMaxV = 6, kMinBlocks = 3;
+  static constexpr bool kChunked = true;
+};
+constexpr int kChunk = 1024;    // window slots a block takes (kChunked)
+
+// acc + 16 bytes of corpus row dotted with the matching float32 query
+// values, one FMA chain (from acc = 0: the vector's own dot product).
+__device__ __forceinline__ float dot_acc(const uint4& v, const float* q,
+                                         float acc, const float*) {
+  acc = fmaf(__uint_as_float(v.x), q[0], acc);
+  acc = fmaf(__uint_as_float(v.y), q[1], acc);
+  acc = fmaf(__uint_as_float(v.z), q[2], acc);
+  return fmaf(__uint_as_float(v.w), q[3], acc);
 }
-__device__ __forceinline__ float dot16(const uint4& v, const float* q,
-                                       const __nv_bfloat16*) {
+__device__ __forceinline__ float dot_acc(const uint4& v, const float* q,
+                                         float acc, const __nv_bfloat16*) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -143,16 +189,12 @@ __device__ __forceinline__ float dot16(const uint4& v, const float* q,
   return acc;
 }
 
-// ---------------------------------------------------------------------------
-// int8 corpus: one block per bucket, several rows in flight per warp
-// ---------------------------------------------------------------------------
-
 // 16 int8 values dotted with 16 float32 query values, added to acc.  Each
 // byte is widened exactly without I2F: b ^ 0x80 = b + 128 in [0, 255]
 // goes into the low mantissa byte of 2^23 (PRMT), and subtracting
 // 2^23 + 128 = 8388736 (FADD) leaves b as float32.
-__device__ __forceinline__ float dot16_i8(const uint4& v, const float* q,
-                                          float acc) {
+__device__ __forceinline__ float dot_acc(const uint4& v, const float* q,
+                                         float acc, const int8_t*) {
   const unsigned w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u,
                          v.z ^ 0x80808080u, v.w ^ 0x80808080u};
 #pragma unroll
@@ -166,29 +208,34 @@ __device__ __forceinline__ float dot16_i8(const uint4& v, const float* q,
   return acc;
 }
 
-// Lanes a corpus row is split over: each lane takes at most 4 of the
+// Lanes a corpus row is split over: each lane takes at most maxv of the
 // row's nvec 16-byte vectors, and a row has at least 4 lanes (as many as
 // the rows a lane keeps in flight).
-__host__ __device__ inline int i8_lanes(int nvec) {
+__host__ __device__ inline int row_lanes(int nvec, int maxv) {
   int lanes = 4;
-  while (lanes < 32 && lanes * 4 < nvec) lanes <<= 1;
+  while (lanes < 32 && lanes * maxv < nvec) lanes <<= 1;
   return lanes;
 }
 
-// Vectors a lane holds with the query slice in registers (1-4), or 0
-// when the slice would not fit (nvec > 128: d > 2048) and the query is
-// read from shared memory instead.
-inline int i8_vectors(int nvec) {
-  return nvec > 128 ? 0 : (nvec + i8_lanes(nvec) - 1) / i8_lanes(nvec);
+// Vectors a lane holds with the query slice in registers (1 to maxv), or
+// 0 when the slice would not fit (nvec > 32 * maxv) and the query is read
+// from shared memory instead.
+inline int lane_vectors(int nvec, int maxv) {
+  return nvec > 32 * maxv ? 0
+                          : (nvec + row_lanes(nvec, maxv) - 1) /
+                                row_lanes(nvec, maxv);
 }
 
-// 16 query floats of vector k out of shared memory (zeros past the row).
-__device__ __forceinline__ void query16(float (&out)[16], const float* qs,
-                                        int k, int nvec) {
+// The E query floats of vector k out of shared memory (zeros past the
+// row).
+template <int E>
+__device__ __forceinline__ void query_vec(float (&out)[E], const float* qs,
+                                          int k, int nvec) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float4 v = k < nvec ? reinterpret_cast<const float4*>(qs)[4 * k + m]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int m = 0; m < E / 4; ++m) {
+    const float4 v = k < nvec
+                         ? reinterpret_cast<const float4*>(qs)[E / 4 * k + m]
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
     out[4 * m] = v.x;
     out[4 * m + 1] = v.y;
     out[4 * m + 2] = v.z;
@@ -220,20 +267,45 @@ __device__ __forceinline__ float reduce_rows(float (&acc)[R], int l,
   return acc[0];
 }
 
-// bucket_kernel for an int8 corpus, one block per bucket (design in the
-// note at the head of the file).  V: vectors a lane holds, the query
-// slice in registers (1-4), or 0 for the query in shared memory.  Window
-// slots [j0, j1) hold the rows to score; masked modes fill the others
-// first.  Lane l of group grp takes vectors k = l, l + lanes, ... of the
-// rows of slots jb + r * groups + grp, r < R.
-template <typename Q, int kMode, int V>
-__global__ void __launch_bounds__(kThreads, 2)
-bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
+// Slots [a, b) of a bucket's outputs set to -1e30 / -1 by every thread of
+// the block: 16-byte stores (float4, int4) where the output rows are
+// 16-byte aligned (vec), scalar stores at the ragged ends and otherwise.
+__device__ __forceinline__ void fill_invalid(float* s, int* r, int a, int b,
+                                             bool vec) {
+  const int va = vec ? min((a + 3) & ~3, b) : b;  // [va, vb): 4 slots a store
+  const int vb = vec ? max(b & ~3, va) : b;
+  for (int j = a + threadIdx.x; j < va; j += kThreads) {
+    s[j] = kNeg;
+    r[j] = -1;
+  }
+  float4* s4 = reinterpret_cast<float4*>(s);
+  int4* r4 = reinterpret_cast<int4*>(r);
+  for (int j = (va >> 2) + threadIdx.x; j < (vb >> 2); j += kThreads) {
+    s4[j] = make_float4(kNeg, kNeg, kNeg, kNeg);
+    r4[j] = make_int4(-1, -1, -1, -1);
+  }
+  for (int j = vb + threadIdx.x; j < b; j += kThreads) {
+    s[j] = kNeg;
+    r[j] = -1;
+  }
+}
+
+// bucket_kernel, one block per bucket or per (bucket, chunk of kChunk
+// window slots) (design in the note at the head of the file): every mode
+// of an int8 corpus, the masked modes (v3, fused) of a bf16 or f32 one.  V: vectors a lane holds, the query slice in
+// registers (1 to Corpus<T>::kMaxV), or 0 for the query in shared
+// memory.  Window slots [j0, j1) hold the rows to score; masked modes
+// fill the others first.  Lane l of group grp takes vectors k = l,
+// l + lanes, ... of the rows of slots jb + r * groups + grp, r < R.
+template <typename T, typename Q, int kMode, int V>
+__global__ void __launch_bounds__(kThreads, Corpus<T>::kMinBlocks)
+bucket_kernel(const T* __restrict__ semb, int d, long long n_rows,
               const int* __restrict__ starts, const int* __restrict__ ends,
               const int* __restrict__ offsets, const int* __restrict__ cidx,
               const Q* __restrict__ qemb, int cap, int align,
               float* __restrict__ scores, int* __restrict__ rows) {
   extern __shared__ float qs[];   // d floats
+  constexpr int kEpv = Corpus<T>::kEpv;
   const int g = blockIdx.x;
   int s, e;
   if (kMode == kFused) {
@@ -248,34 +320,36 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
   const Q* qrow = qemb + static_cast<size_t>(g) * d;
   float* out_s = scores + static_cast<size_t>(g) * cap;
   int* out_r = (kMode == kRaw) ? nullptr : rows + static_cast<size_t>(g) * cap;
-  constexpr int kV = V > 0 ? V : 4;        // vectors a lane takes per chunk
+  constexpr int kV = V > 0 ? V : 4;        // vectors a lane takes per pass
   constexpr int R = kV >= 4 ? 2 : 4;       // rows in flight per lane group
   int j0 = 0, j1 = cap;
   if (kMode != kRaw) {                     // invalid slots, coalesced
-    j0 = max(s, al) - al;
-    j1 = max(min(e, al + cap) - al, j0);
-    for (int j = threadIdx.x; j < cap; j += kThreads) {
-      if (j < j0 || j >= j1) {
-        out_s[j] = kNeg;
-        out_r[j] = -1;
-      }
-    }
+    // this block's slots [c0, c1): the whole window, or chunk blockIdx.y
+    const int c0 = blockIdx.y * kChunk;
+    const int c1 = Corpus<T>::kChunked ? min(c0 + kChunk, cap) : cap;
+    j0 = min(max(max(s, al) - al, c0), c1);
+    j1 = max(min(min(e, al + cap) - al, c1), j0);
+    const bool vec = (cap & 3) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(scores) |
+                       reinterpret_cast<uintptr_t>(rows)) & 15) == 0;
+    fill_invalid(out_s, out_r, c0, j0, vec);
+    fill_invalid(out_s, out_r, j1, c1, vec);
     if (j0 >= j1) return;                  // uniform across the block
   }
   for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = to_f32(qrow[i]);
   __syncthreads();
 
-  const int nvec = d >> 4;
-  const int lanes = V > 0 ? i8_lanes(nvec) : 32;
+  const int nvec = d / kEpv;
+  const int lanes = V > 0 ? row_lanes(nvec, Corpus<T>::kMaxV) : 32;
   const int lane = threadIdx.x & 31;
   const int l = lane & (lanes - 1);        // lane within its group
   const int groups = 32 / lanes;
   const int grp = lane / lanes;
-  const int step = kV * lanes;             // vectors a chunk covers
-  float qf[V > 0 ? V : 1][16];
+  const int step = kV * lanes;             // vectors a pass covers
+  float qf[V > 0 ? V : 1][kEpv];
   if (V > 0) {
 #pragma unroll
-    for (int i = 0; i < kV; ++i) query16(qf[i], qs, l + lanes * i, nvec);
+    for (int i = 0; i < kV; ++i) query_vec(qf[i], qs, l + lanes * i, nvec);
   }
   const int per_warp = R * groups;         // slots a warp takes per round
   for (int jb = j0 + (threadIdx.x >> 5) * per_warp; jb < j1;
@@ -294,7 +368,7 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int kb = l; kb < nvec; kb += step) {  // V > 0: one chunk
+    for (int kb = l; kb < nvec; kb += step) {  // V > 0: one pass
       uint4 x[R][kV];
 #pragma unroll
       for (int r = 0; r < R; ++r)
@@ -306,11 +380,12 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
         }
 #pragma unroll
       for (int i = 0; i < kV; ++i) {
-        float qv[16];
-        if (V == 0) query16(qv, qs, kb + lanes * i, nvec);
+        float qv[kEpv];
+        if (V == 0) query_vec(qv, qs, kb + lanes * i, nvec);
         const float* qp = V > 0 ? qf[V > 0 ? i : 0] : qv;
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = dot16_i8(x[r][i], qp, acc[r]);
+        for (int r = 0; r < R; ++r)
+          acc[r] = dot_acc(x[r][i], qp, acc[r], semb);
       }
     }
     const float sum = reduce_rows<R>(acc, l, lanes);
@@ -325,68 +400,42 @@ bucket_kernel(const int8_t* __restrict__ semb, int d, long long n_rows,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f32 corpora: one block per (bucket, tile of kTile slots), one
-// warp per slot at a time
+// bf16 and f32 raw mode (v1): one block per (bucket, tile of kTile window
+// slots), one warp per slot at a time
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Q, int kMode>
+template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads)
-bucket_kernel(const T* __restrict__ semb, int d, long long n_rows,
-              const int* __restrict__ starts, const int* __restrict__ ends,
-              const int* __restrict__ offsets, const int* __restrict__ cidx,
-              const Q* __restrict__ qemb, int cap, int align,
-              float* __restrict__ scores, int* __restrict__ rows) {
+raw_tile_kernel(const T* __restrict__ semb, int d, long long n_rows,
+                const int* __restrict__ starts, const int*, const int*,
+                const int*, const Q* __restrict__ qemb, int cap, int,
+                float* __restrict__ scores, int*) {
   extern __shared__ float qs[];   // d floats
   constexpr int kEpv = 16 / sizeof(T);
   const int g = blockIdx.x;
-  int s, e;
-  if (kMode == kFused) {
-    const int c = cidx[g];
-    s = offsets[c];
-    e = offsets[c + 1];
-  } else {
-    s = starts[g];
-    e = (kMode == kRaw) ? 0 : ends[g];
-  }
-  const int al = (kMode == kRaw) ? s : (s / align) * align;
+  const int s = starts[g];
   const int j0 = blockIdx.y * kTile;
   const int j1 = min(j0 + kTile, cap);
-  const bool any = (kMode == kRaw) || max(s, al + j0) < min(e, al + j1);
-  if (any) {
-    const Q* qrow = qemb + static_cast<size_t>(g) * d;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) qs[i] = to_f32(qrow[i]);
-  }
+  const Q* qrow = qemb + static_cast<size_t>(g) * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) qs[i] = to_f32(qrow[i]);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nvec = d / kEpv;
   float* out_s = scores + static_cast<size_t>(g) * cap;
-  int* out_r = (kMode == kRaw) ? nullptr : rows + static_cast<size_t>(g) * cap;
   for (int j = j0 + warp; j < j1; j += kWarps) {
-    long long row = static_cast<long long>(al) + j;
-    bool ok;                               // uniform across the warp
-    if (kMode == kRaw) {
-      row = min(row, n_rows - 1);
-      ok = true;
-    } else {
-      ok = row >= s && row < e;
-    }
+    const long long row = min(static_cast<long long>(s) + j, n_rows - 1);
+    const uint4* src =
+        reinterpret_cast<const uint4*>(semb + static_cast<size_t>(row) * d);
     float acc = 0.f;
-    if (ok) {
-      const uint4* src =
-          reinterpret_cast<const uint4*>(semb + static_cast<size_t>(row) * d);
 #pragma unroll 4
-      for (int k = lane; k < nvec; k += 32)
-        acc += dot16(__ldg(src + k), qs + k * kEpv, semb);
+    for (int k = lane; k < nvec; k += 32)
+      acc += dot_acc(__ldg(src + k), qs + k * kEpv, 0.f, semb);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    }
-    if (lane == 0) {
-      out_s[j] = ok ? acc : kNeg;
-      if (kMode != kRaw) out_r[j] = ok ? static_cast<int>(row) : -1;
-    }
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) out_s[j] = acc;
   }
 }
 
@@ -505,7 +554,7 @@ bucket_kernel_v2(const T* __restrict__ semb, int d,
           qf[4 * m + 2] = w.z;
           qf[4 * m + 3] = w.w;
         }
-        acc += dot16(v, qf, semb);
+        acc += dot_acc(v, qf, 0.f, semb);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -575,7 +624,7 @@ bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
   __syncthreads();
 
   const int nvec = d >> 4;
-  const int lanes = V > 0 ? i8_lanes(nvec) : 32;
+  const int lanes = V > 0 ? row_lanes(nvec, 4) : 32;
   const int lane = threadIdx.x & 31;
   const int l = lane & (lanes - 1);        // lane within its group
   const int groups = 32 / lanes;
@@ -584,7 +633,7 @@ bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
   float qf[V > 0 ? V : 1][16];
   if (V > 0) {
 #pragma unroll
-    for (int i = 0; i < kV; ++i) query16(qf[i], qs, l + lanes * i, nvec);
+    for (int i = 0; i < kV; ++i) query_vec(qf[i], qs, l + lanes * i, nvec);
   }
   const int per_warp = R * groups;         // rows a warp takes per round
   for (int t = 0; t < ntiles; ++t) {
@@ -626,10 +675,11 @@ bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
 #pragma unroll
         for (int i = 0; i < kV; ++i) {
           float qv[16];
-          if (V == 0) query16(qv, qs, kb + lanes * i, nvec);
+          if (V == 0) query_vec(qv, qs, kb + lanes * i, nvec);
           const float* qp = V > 0 ? qf[V > 0 ? i : 0] : qv;
 #pragma unroll
-          for (int r = 0; r < R; ++r) acc[r] = dot16_i8(x[r][i], qp, acc[r]);
+          for (int r = 0; r < R; ++r)
+            acc[r] = dot_acc(x[r][i], qp, acc[r], semb);
         }
       }
       const float sum = reduce_rows<R>(acc, l, lanes);
@@ -650,33 +700,43 @@ bucket_kernel_v2(const int8_t* __restrict__ semb, int d,
 // launchers
 // ---------------------------------------------------------------------------
 
-// One mode's launch: int8 corpora take one block per bucket and the
-// instance for their vectors a lane (i8_vectors); bf16 and f32 one block
-// per (bucket, tile).
+// One instance of bucket_kernel: one block per bucket, or per (bucket,
+// chunk of kChunk window slots) for the masked modes of a kChunked type.
+template <typename T, typename Q, int kMode, int V, typename... A>
+void launch_v(int G, int cap, size_t smem, cudaStream_t stream, A... args) {
+  const bool split = Corpus<T>::kChunked && kMode != kRaw;
+  const dim3 grid(G, split ? (cap + kChunk - 1) / kChunk : 1);
+  bucket_kernel<T, Q, kMode, V><<<grid, kThreads, smem, stream>>>(args...);
+}
+
+// One mode's launch: bucket_kernel's instance for the vectors a lane
+// holds (lane_vectors; f32's 5 take the instance of 6), except the raw
+// mode of bf16 and f32 corpora, which takes one block per (bucket, tile).
 template <typename T, typename Q, int kMode, typename... A>
 void launch_mode(int G, int cap, int d, cudaStream_t stream, A... args) {
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  if constexpr (std::is_same<T, int8_t>::value) {
-    const dim3 grid(G);
-    switch (i8_vectors(d / 16)) {
-      case 1:
-        bucket_kernel<Q, kMode, 1><<<grid, kThreads, smem, stream>>>(args...);
-        break;
-      case 2:
-        bucket_kernel<Q, kMode, 2><<<grid, kThreads, smem, stream>>>(args...);
-        break;
-      case 3:
-        bucket_kernel<Q, kMode, 3><<<grid, kThreads, smem, stream>>>(args...);
-        break;
-      case 4:
-        bucket_kernel<Q, kMode, 4><<<grid, kThreads, smem, stream>>>(args...);
-        break;
-      default:
-        bucket_kernel<Q, kMode, 0><<<grid, kThreads, smem, stream>>>(args...);
-    }
-  } else {
+  if constexpr (!std::is_same<T, int8_t>::value && kMode == kRaw) {
     const dim3 grid(G, (cap + kTile - 1) / kTile);
-    bucket_kernel<T, Q, kMode><<<grid, kThreads, smem, stream>>>(args...);
+    raw_tile_kernel<T, Q><<<grid, kThreads, smem, stream>>>(args...);
+  } else {
+    constexpr int kMaxV = Corpus<T>::kMaxV;
+    const int v = lane_vectors(d / Corpus<T>::kEpv, kMaxV);
+    if constexpr (kMaxV > 4) {
+      if (v > 4)
+        return launch_v<T, Q, kMode, kMaxV>(G, cap, smem, stream, args...);
+    }
+    switch (v) {
+      case 1:
+        return launch_v<T, Q, kMode, 1>(G, cap, smem, stream, args...);
+      case 2:
+        return launch_v<T, Q, kMode, 2>(G, cap, smem, stream, args...);
+      case 3:
+        return launch_v<T, Q, kMode, 3>(G, cap, smem, stream, args...);
+      case 4:
+        return launch_v<T, Q, kMode, 4>(G, cap, smem, stream, args...);
+      default:
+        return launch_v<T, Q, kMode, 0>(G, cap, smem, stream, args...);
+    }
   }
 }
 
@@ -719,7 +779,7 @@ cudaError_t launch_v2_i8(const int8_t* semb, int d, const int* starts,
                          const int* ends, const Q* qemb, int G, int cap,
                          int align, float* scores, int* rows,
                          cudaStream_t stream) {
-  const int groups = V > 0 ? 32 / i8_lanes(d / 16) : 1;
+  const int groups = V > 0 ? 32 / row_lanes(d / 16, 4) : 1;
   const int round = kWarps * V2I8<V>::R * groups;
   const int fit = max(1, kStageBytesI8 / d);
   const int nrows = fit >= round ? fit / round * round : fit;
@@ -735,7 +795,7 @@ cudaError_t launch_v2_i8(const int8_t* semb, int d, const int* starts,
   return cudaGetLastError();
 }
 
-// int8 v2: the instance for the vectors a lane holds (i8_vectors).
+// int8 v2: the instance for the vectors a lane holds (lane_vectors).
 template <typename Q>
 cudaError_t launch_v2_int8(const void* semb, int d, const int* starts,
                            const int* ends, const void* qemb, int G, int cap,
@@ -743,7 +803,7 @@ cudaError_t launch_v2_int8(const void* semb, int d, const int* starts,
                            cudaStream_t stream) {
   const int8_t* e = static_cast<const int8_t*>(semb);
   const Q* q = static_cast<const Q*>(qemb);
-  switch (i8_vectors(d / 16)) {
+  switch (lane_vectors(d / 16, 4)) {
     case 1:
       return launch_v2_i8<Q, 1>(e, d, starts, ends, q, G, cap, align, scores,
                                 rows, stream);

@@ -144,9 +144,12 @@ def build_kernel() -> KernelLibrary:
         _BUILD.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
         os.close(fd)
+        # --split-compile 0: the kernel instances are optimised on every
+        # core (92 instances of one source)
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(_SRC)]
+               "--split-compile", "0", "-Xptxas", "-v", "-o", tmp,
+               str(_SRC)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         secs = time.perf_counter() - t0

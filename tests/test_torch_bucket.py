@@ -14,6 +14,7 @@ the int8 cases of ``INT8_CASES``, whose every product and partial sum
 is exact in float32 (full-range int8 rows, queries k * 2^m with
 |k| <= 32), so the kernel must equal its plain version bit for bit."""
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -213,6 +214,65 @@ def test_align1_matches_beam_scores(jx, case):
                                rtol=0)
 
 
+SPARSE_CAP = 256
+
+
+@pytest.fixture(scope="module")
+def sparse_case():
+    """The evaluator's sparse window (cap 4096 over clusters of a few
+    dozen rows) at a small size: clusters of at most 12 rows under a cap
+    of 256, so that over 95% of the slots are empty; empty clusters,
+    starts off the 8-grid, a last cluster whose window runs past its
+    rows (slack rows of zeros for the TPU kernel only)."""
+    rng = np.random.default_rng(5)
+    C = KARY ** M
+    sizes = rng.integers(0, 13, size=C)
+    sizes[rng.choice(C - 1, 8, replace=False)] = 0
+    sizes[-1] = 7
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    n = int(offsets[-1])
+    emb = rng.normal(size=(n + SPARSE_CAP + 8, D)).astype(np.float32)
+    emb[n:] = 0.0
+    G = 48
+    ci = rng.integers(0, C, G).astype(np.int32)
+    ci[:2] = [C - 1, int(np.argmin(sizes))]
+    q = rng.normal(size=(G, D)).astype(np.float32)
+    return offsets, emb, ci, q, n
+
+
+@pytest.mark.parametrize("oracle", ["pallas_interpret", "v2_reference",
+                                    "fused_reference"])
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_sparse_window_matches_jax(jx, sparse_case, name, oracle):
+    """The plain versions the card's kernels are held against, at a cap
+    far above the cluster sizes: v3's against the v3 Pallas kernel body
+    in the Pallas interpreter and ``bucket_scores_v2_reference``, fused's
+    against ``bucket_scores_fused_reference``."""
+    offsets, emb, ci, q, n = sparse_case
+    st, en = _bounds(offsets, ci)
+    valid = np.minimum(en, (st // 8) * 8 + SPARSE_CAP) - st
+    assert valid.sum() <= 0.05 * len(ci) * SPARSE_CAP
+    J = jx.jnp.asarray
+    ej = _jax_t(jx, emb, name)
+    if oracle == "fused_reference":
+        ref = jx.jb.bucket_scores_fused_reference(
+            ej, J(jx.jb.pack_offsets_2d(offsets)), J(ci), J(q), SPARSE_CAP)
+        got = tb.bucket_scores_fused(
+            _torch_t(emb[:n], name),
+            torch.from_numpy(offsets.astype(np.int32)), torch.from_numpy(ci),
+            torch.from_numpy(q), SPARSE_CAP, device="cpu")
+    else:
+        fn = (jx.jb.bucket_scores_v2_reference if oracle == "v2_reference"
+              else functools.partial(jx.jb.bucket_scores_v3,
+                                     interpret=True))
+        ref = fn(ej, J(st), J(en), J(q), SPARSE_CAP)
+        got = tb.bucket_scores_v3(_torch_t(emb[:n], name),
+                                  torch.from_numpy(st), torch.from_numpy(en),
+                                  torch.from_numpy(q), SPARSE_CAP,
+                                  device="cpu")
+    _assert_same(got, ref, name)
+
+
 def test_wrappers_reject_bad_inputs(case):
     offsets, emb, ci, q = case
     semb = torch.from_numpy(emb[:N])
@@ -272,15 +332,45 @@ INT8_CASES = {"int8_d16": (16, 100, "bf16", 1 / 8),
               "int8_d768": (768, 512, "bf16", 1 / 8),
               "int8_d784_f32": (784, 200, "f32", 4096.0),
               "int8_d2064": (2064, 96, "bf16", 1 / 8)}
+# bf16 and f32 corpora on the card: corpus type, d (16-byte vectors a
+# row: 1, 3, 8, 96 (bf16's serving width), 97, 130 and, for f32, 192
+# (the serving width, 6 a lane) and 260: a lane group of 4 lanes, ragged
+# groups, vectors a lane from 1 to 6, the query past its register slice),
+# cap (not multiples of 4 or 64; over the 1,024 slots of a block's chunk,
+# with a short last chunk; the evaluator's 4096 over clusters of at most
+# 60 rows) and query type.
+FLOAT_CASES = {"bf16_d8": ("bf16", 8, 61, "bf16"),
+               "bf16_d24": ("bf16", 24, 100, "f32"),
+               "bf16_d64": ("bf16", 64, 250, "bf16"),
+               "bf16_d768": ("bf16", 768, 513, "bf16"),
+               "bf16_d768_cap4096": ("bf16", 768, 4096, "bf16"),
+               "bf16_d776": ("bf16", 776, 83, "f32"),
+               "bf16_d1040": ("bf16", 1040, 90, "bf16"),
+               "bf16_d24_cap2050": ("bf16", 24, 2050, "bf16"),
+               "f32_d4": ("f32", 4, 61, "f32"),
+               "f32_d12": ("f32", 12, 100, "bf16"),
+               "f32_d32": ("f32", 32, 250, "f32"),
+               "f32_d384": ("f32", 384, 513, "f32"),
+               "f32_d388": ("f32", 388, 83, "bf16"),
+               "f32_d520": ("f32", 520, 90, "f32"),
+               "f32_d768_cap4096": ("f32", 768, 4096, "f32"),
+               "f32_d1040": ("f32", 1040, 66, "bf16"),
+               "f32_d12_cap1030": ("f32", 12, 1030, "f32")}
 
 
-def int8_case(name, dev):
-    """A CSR over 40 clusters of full-range int8 rows (rows of -128 and
-    of 127 inside the bucket over cap), an empty cluster, starts off the
-    8-grid, a small last cluster whose windows run past N; 64 buckets and
-    queries k * scale with integer |k| <= 32, so that every float32 sum
-    is exact.  Returns (semb, offsets, cidx, q, cap) on ``dev``."""
-    d, cap, qname, scale = INT8_CASES[name]
+def exact_case(name, dev):
+    """A CSR over 40 clusters of integer rows in [-128, 127] (rows of
+    -128 and of 127 inside the bucket over cap), an empty cluster, starts
+    off the 8-grid, a small last cluster whose windows run past N; 64
+    buckets and queries k * scale with integer |k| <= 32 (scale 1/8 for
+    the bf16 and f32 cases), so that every float32 sum is exact.  Returns
+    (semb, offsets, cidx, q, cap) on ``dev``."""
+    if name in INT8_CASES:
+        corpus = "int8"
+        d, cap, qname, scale = INT8_CASES[name]
+    else:
+        corpus, d, cap, qname = FLOAT_CASES[name]
+        scale = 1 / 8
     rng = np.random.default_rng(d + cap)
     sizes = rng.integers(0, 60, size=40)
     sizes[3] = 0
@@ -294,18 +384,19 @@ def int8_case(name, dev):
     ci = rng.integers(0, len(sizes), 64).astype(np.int32)
     ci[:3] = [7, 3, len(sizes) - 1]
     q = (rng.integers(-32, 33, size=(64, d)) * scale).astype(np.float32)
-    return (torch.from_numpy(emb).to(dev),
+    return (torch.from_numpy(emb).to(dev, DTYPES[corpus]),
             torch.from_numpy(offsets).to(dev), torch.from_numpy(ci).to(dev),
             torch.from_numpy(q).to(dev, DTYPES[qname]), cap)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(DTYPES) + list(INT8_CASES))
+@pytest.mark.parametrize("name", list(DTYPES) + list(INT8_CASES)
+                         + list(FLOAT_CASES))
 @pytest.mark.parametrize("mode", ["v3", "fused"])
 @pytest.mark.parametrize("align", [8, 1])
 def test_cuda_kernel_matches_plain(case, cuda_device, name, mode, align):
-    if name in INT8_CASES:
-        semb, off, cit, qt, cap = int8_case(name, cuda_device)
+    if name in INT8_CASES or name in FLOAT_CASES:
+        semb, off, cit, qt, cap = exact_case(name, cuda_device)
         tol = dict(rtol=0, atol=0)
     else:
         offsets, emb, ci, q = case

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from mevi_tpu_torch.ops import bucket as tb
-from test_torch_bucket import INT8_CASES, int8_case
+from test_torch_bucket import INT8_CASES, exact_case
 
 N, D, CAP = 1000, 32, 64
 NPAD = N + CAP + 8                   # slack rows the TPU kernels DMA
@@ -334,7 +334,7 @@ def test_cuda_v2_matches_plain(case, cuda_device, name, wide, align):
     float32 sums) must equal the plain version."""
     tol = dict(rtol=0, atol=0)
     if name in INT8_CASES:
-        semb, off, cit, q, cap = int8_case(name, cuda_device)
+        semb, off, cit, q, cap = exact_case(name, cuda_device)
         st = off[cit.long()].contiguous()
         en = off[cit.long() + 1].contiguous()
     elif name in V2_INT8_CASES:
@@ -371,7 +371,7 @@ def test_cuda_raw_matches_plain(case, cuda_device, name, wide):
     ``INT8_CASES`` (exact float32 sums) must equal the plain version."""
     tol = dict(rtol=1e-4, atol=1e-3)
     if name in INT8_CASES:
-        semb, off, cit, q, cap = int8_case(name, cuda_device)
+        semb, off, cit, q, cap = exact_case(name, cuda_device)
         st = tb.align_down(off[cit.long()]).contiguous()
         tol = dict(rtol=0, atol=0)
     elif wide:
