@@ -618,13 +618,14 @@ def check_outputs(tag, out, cfg, B):
     return float(valid.mean()), float(ndoc.mean())
 
 
-def run_path(tag, server, batches, cfg, counter):
-    """Warm-up, then timed batches; counts launches of ``counter``'s
-    wrapper only across this path's own batches."""
+def run_path(tag, server, batches, cfg, mode):
+    """Warm-up, then timed batches; counts the launches of kernel mode
+    ``mode`` only across this path's own batches."""
+    from mevi_tpu_torch.ops.bucket import launch_counts
     for ids, mask, ov in batches[:cfg["warmup"]]:
         server.finalize(server.query_device(ids, mask, ov))
     torch.cuda.synchronize()
-    counter.launches = 0
+    launches0 = launch_counts()[mode]
     stage_ms, q_ms, last = [], [], None
     for ids, mask, ov in batches[cfg["warmup"]:]:
         ms, out, extra = serve_stages(server, ids, mask, ov)
@@ -634,7 +635,7 @@ def run_path(tag, server, batches, cfg, counter):
         q_ms.append((time.perf_counter() - t0) * 1e3)
         agree(f"{tag}: stages vs query", out, out2)
         last = (ids, mask, ov, out, extra)
-    launches = counter.launches
+    launches = launch_counts()[mode] - launches0
     if launches == 0:
         raise AssertionError(f"{tag}: the bucket kernel never launched")
     med = {k: statistics.median(m[k] for m in stage_ms)
@@ -666,15 +667,20 @@ def profile_path(server, batches, tag="2_profile"):
                "calls_per_batch": tr.calls[k] / n} for k, s in kern[:12]])
 
 
+# the kernels' launch counts at the last ``reset_counts``
+COUNTS0 = {}
+
+
 def reset_counts():
-    from mevi_tpu_torch.ops import bucket as B
-    for name in WRAPPER.values():
-        getattr(B, name).launches = 0
+    from mevi_tpu_torch.ops.bucket import launch_counts
+    COUNTS0.update(launch_counts())
 
 
 def read_counts():
-    from mevi_tpu_torch.ops import bucket as B
-    return {mode: getattr(B, name).launches for mode, name in WRAPPER.items()}
+    """Launches of each kernel mode since the last ``reset_counts``."""
+    from mevi_tpu_torch.ops.bucket import launch_counts
+    return {mode: n - COUNTS0.get(mode, 0)
+            for mode, n in launch_counts().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1344,7 +1350,6 @@ def synth_phase(cfg, seed, dev, qtower, nci, corpus, secs):
     from mevi_tpu_torch.eval import ceiling
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.csr import pack_codes
-    from mevi_tpu_torch.ops import bucket as B
     from mevi_tpu_torch.serve import BucketServer
     S = SYNTH
     t_phase = time.perf_counter()
@@ -1389,11 +1394,9 @@ def synth_phase(cfg, seed, dev, qtower, nci, corpus, secs):
                for _ in range(cfg["warmup"] + cfg["timed"])]
     secs["query_tokens_s"] = time.perf_counter() - t0
     reset_counts()
-    n_plain, _ = run_path("6b_plain_beam", plain, batches, cfg,
-                          B.bucket_scores_v3)
-    n_tab, _ = run_path("6b_pawa_tables", tab_server, batches, cfg,
-                        B.bucket_scores_v3)
-    if B.bucket_scores_fused.launches:
+    n_plain, _ = run_path("6b_plain_beam", plain, batches, cfg, "v3")
+    n_tab, _ = run_path("6b_pawa_tables", tab_server, batches, cfg, "v3")
+    if read_counts()["fused"]:
         raise AssertionError("6b: the v3 servers launched the fused mode")
     # the two servers in turns on each timed batch (plain, tables,
     # tables, plain): the coarse stage drifts between runs
@@ -1628,7 +1631,6 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
     from mevi_tpu_torch.models.nci import NCIT5
     from mevi_tpu_torch.models.t5 import T5Dims, T5Model
     from mevi_tpu_torch.models.twin_tower import Tower
-    from mevi_tpu_torch.ops import bucket as B
     from mevi_tpu_torch.ops import rq as rq_ops
     from mevi_tpu_torch.serve import BucketServer
     from mevi_tpu_torch.train import joint as J
@@ -1781,7 +1783,7 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
             server = BucketServer(qtower, nci16, index, **kw)
             reset_counts()
             n, _ = run_path(f"7_{name}_serve", server, batches, cfg,
-                            B.bucket_scores_v3)
+                            "v3")
             if name == "trained":
                 n_trained = n
                 if nci_out:
@@ -2672,7 +2674,7 @@ def sharded_serve_rank(dev, semb, offsets, doc_ids, nci_path, cfg, seed,
     PM.all_gather_list(ck, mesh, PM.DATA_AXIS)   # every shard is in
     PM.all_gather_list(ck, mesh, PM.CORPUS_AXIS)
     used = card_memory_used_mib() if mesh.rank == 0 else None
-    B.bucket_scores_v3.launches = 0
+    launches0 = B.launch_counts()["v3"]
     stage, fill = [], []
     for i, ids_h in enumerate(batches):
         ids = PM.data_slice(ids_h, mesh).to(dev)
@@ -2698,7 +2700,7 @@ def sharded_serve_rank(dev, semb, offsets, doc_ids, nci_path, cfg, seed,
             fill.append(float((dids >= 0).float().mean()))
     return dict(
         rank=mesh.rank, coords=mesh.coords, setup_s=setup_s,
-        launches=B.bucket_scores_v3.launches, stage_ms=stage,
+        launches=B.launch_counts()["v3"] - launches0, stage_ms=stage,
         pool_filled=float(np.mean(fill)), card_used_mib=used,
         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
         shard_rows=int(shard.shape[0]),
@@ -2727,10 +2729,11 @@ def nccl_serve_rank(dev, semb16, offsets, doc_ids, nci_path, cfg, seed,
                                  pool=cfg["pool"],
                                  length_penalty=cfg["length_penalty"])
     ids = ids_h.to(dev)
-    B.bucket_scores_v3.launches = 0
+    launches0 = B.launch_counts()["v3"]
     qemb, codes, _ = server.coarse(ids, torch.ones_like(ids))
     scores, dids, _ = gather_batch((*server.fine(qemb, codes), codes), mesh)
-    return dict(backends=backends, launches=B.bucket_scores_v3.launches,
+    return dict(backends=backends,
+                launches=B.launch_counts()["v3"] - launches0,
                 qemb=qemb.float().cpu().numpy(), codes=codes.cpu().numpy(),
                 scores=scores.cpu().numpy(), ids=dids.cpu().numpy())
 
@@ -4220,7 +4223,6 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     from mevi_tpu_torch.config import InferConfig
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.index.build import quantize_int8
-    from mevi_tpu_torch.ops import bucket as B
     from mevi_tpu_torch.scripts import profile_bucket
     from mevi_tpu_torch.serve import BucketServer
 
@@ -4310,13 +4312,11 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
 
     own = batches(False)
     over = batches(True)
-    # main path: set every count to 0, drive it, read the counts
+    # main path: count from here, drive it, read the counts
     reset_counts()
-    n_own, _ = run_path("2_own_codes", server, own, cfg,
-                        B.bucket_scores_v3)
-    n_over, last = run_path("2_cidx_override", server, over, cfg,
-                            B.bucket_scores_v3)
-    if B.bucket_scores_fused.launches:
+    n_own, _ = run_path("2_own_codes", server, own, cfg, "v3")
+    n_over, last = run_path("2_cidx_override", server, over, cfg, "v3")
+    if read_counts()["fused"]:
         raise AssertionError("v3 server launched the fused mode")
     main_launches = n_own + n_over
     # the plain bucket version on the last batch
@@ -4331,7 +4331,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     fused = BucketServer(qtower, nci, index, bucket_kernel="fused", **kw)
     reset_counts()
     n_fused, flast = run_path("2_fused", fused, over[:cfg["warmup"] + 2],
-                              cfg, B.bucket_scores_fused)
+                              cfg, "fused")
     agree("2_fused vs v3", flast[3],
           server.finalize(server.query_device(*flast[:3])))
     del fused
@@ -4343,8 +4343,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     index8 = index._replace(sorted_emb=semb_i8)
     server8 = BucketServer(qtower, nci, index8, inv_scale=1.0 / scale, **kw)
     reset_counts()
-    n_int8, last8 = run_path("3_int8", server8, over, cfg,
-                             B.bucket_scores_v3)
+    n_int8, last8 = run_path("3_int8", server8, over, cfg, "v3")
     ids, m, ov, out8, (cidx8, q8s, ts8, tr8) = last8
     err8, n_sep8 = compare_pools("3_plain", (ts8, tr8),
                                  pool_with_plain(server8, cidx8, q8s, Bq))

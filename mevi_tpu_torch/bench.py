@@ -190,8 +190,6 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
         raise FileNotFoundError(
             f"{ckpt}: incomplete bundle (needs spec.json, tower_params.npz "
             f"and ckpts/nci/leaderboard.json)")
-    counters = {"v3": Bk.bucket_scores_v3, "fused": Bk.bucket_scores_fused}
-
     if ckpt:
         spec = synth.load_spec(osp.join(ckpt, "spec.json"))
         own_corpus = NDOC == spec.ndoc
@@ -317,7 +315,7 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
         log("bucket kernel == plain version on a device sample: OK")
     # the served path's launches are counted from here: the check's one
     # launch above is a comparison
-    launches0 = {k: f.launches for k, f in counters.items()}
+    launches0 = Bk.launch_counts()
 
     # ---- recall against exact MIPS (cluster + cap truncation) -------------
     # queries are perturbed documents; two coarse stand-ins: a codebook
@@ -539,8 +537,9 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
                 / P.H100_SXM_BF16_DENSE_FLOPS * 100, 1)
     extras["stages"] = stage
     log(f"stages: {stage}")
-    extras["bucket_launches"] = {k: f.launches - launches0[k]
-                                 for k, f in counters.items()}
+    launches = Bk.launch_counts()
+    extras["bucket_launches"] = {k: launches[k] - launches0[k]
+                                 for k in ("v3", "fused")}
     if keep is not None:
         keep.update(server=server, batches=batches)
     return qps, baseline_qps

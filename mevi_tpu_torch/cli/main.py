@@ -717,8 +717,8 @@ def cmd_eval(args):
     print(json.dumps(report, indent=1, default=float))
     # the bucket kernel's launches in this process so far (the plain
     # version on the CPU launches none), for a caller in another process
-    from ..ops.bucket import bucket_scores_v3
-    print(json.dumps({"bucket_launches": {"v3": bucket_scores_v3.launches}}),
+    from ..ops.bucket import launch_counts
+    print(json.dumps({"bucket_launches": {"v3": launch_counts()["v3"]}}),
           file=sys.stderr)
     if args.save_path:
         base = args.save_path.rsplit(".", 1)[0]

@@ -30,7 +30,9 @@ the raw kernel reads the whole clipped window.  See the source note in
 
 A wrapper takes the plain PyTorch version below only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper
-counts its launches in ``.launches``.
+counts its launches in the counter ``bucket.launches.<mode>`` of
+``utils.timers`` (:func:`launch_counts`); a bounds check that waits for
+the device to fetch its answer is the span ``bucket.bounds_check``.
 """
 
 from __future__ import annotations
@@ -44,11 +46,12 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from .. import resolve_device
+from ..utils.timers import count, counter, span
 
 ALIGN = 8
 NEG = -1e30
@@ -271,7 +274,7 @@ def bucket_scores_v3(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
     if dev.type == "cpu":
         return bucket_scores_v3_plain(semb, starts, ends, qemb, cap, align)
     out = _launch(semb, qemb, cap, align, starts=starts, ends=ends)
-    bucket_scores_v3.launches += 1
+    count("bucket.launches.v3")
     return out
 
 
@@ -281,8 +284,10 @@ def _check_bounds(semb, starts, ends, qemb, cap, align, device):
     if starts.shape != ends.shape or starts.shape[0] != qemb.shape[0]:
         raise ValueError("starts, ends and qemb must have G rows")
     if starts.numel():
-        lo, hi, bad = torch.stack([starts.min().long(), ends.max().long(),
-                                   (ends < starts).sum()]).tolist()
+        with span("bucket.bounds_check"):
+            lo, hi, bad = torch.stack([starts.min().long(),
+                                       ends.max().long(),
+                                       (ends < starts).sum()]).tolist()
         if lo < 0 or hi > semb.shape[0] or bad:
             raise ValueError("bounds must satisfy 0 <= s <= e <= N")
     return dev
@@ -296,7 +301,7 @@ def bucket_scores_v2(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
     if dev.type == "cpu":
         return bucket_scores_v2_plain(semb, starts, ends, qemb, cap, align)
     out = _launch_v2(semb, starts, ends, qemb, cap, align)
-    bucket_scores_v2.launches += 1
+    count("bucket.launches.v2")
     return out
 
 
@@ -312,13 +317,14 @@ def bucket_scores(semb, starts, qemb, cap: int, device="cuda"):
     if starts.shape[0] != qemb.shape[0]:
         raise ValueError("starts and qemb must have G rows")
     if starts.numel():
-        lo, hi = torch.stack([starts.min(), starts.max()]).tolist()
+        with span("bucket.bounds_check"):
+            lo, hi = torch.stack([starts.min(), starts.max()]).tolist()
         if lo < 0 or hi >= semb.shape[0]:
             raise ValueError("starts must lie in [0, N)")
     if dev.type == "cpu":
         return bucket_scores_plain(semb, starts, qemb, cap)
     out = _launch_raw(semb, starts, qemb, cap)
-    bucket_scores.launches += 1
+    count("bucket.launches.raw")
     return out
 
 
@@ -336,9 +342,11 @@ def bucket_scores_fused(semb, offsets, cidx, qemb, cap: int,
     if offsets.shape[0] < 2:
         raise ValueError("offsets must hold C + 1 >= 2 entries")
     if cidx.numel():
-        lo, hi, first, last, bad = torch.stack([
-            cidx.min().long(), cidx.max().long(), offsets[0].long(),
-            offsets[-1].long(), (offsets[1:] < offsets[:-1]).sum()]).tolist()
+        with span("bucket.bounds_check"):
+            lo, hi, first, last, bad = torch.stack([
+                cidx.min().long(), cidx.max().long(), offsets[0].long(),
+                offsets[-1].long(),
+                (offsets[1:] < offsets[:-1]).sum()]).tolist()
         if (lo < 0 or hi >= offsets.shape[0] - 1 or first < 0
                 or last > semb.shape[0] or bad):
             raise ValueError("cidx must index offsets, and offsets must "
@@ -347,11 +355,14 @@ def bucket_scores_fused(semb, offsets, cidx, qemb, cap: int,
         return bucket_scores_fused_plain(semb, offsets, cidx, qemb, cap,
                                          align)
     out = _launch(semb, qemb, cap, align, offsets=offsets, cidx=cidx)
-    bucket_scores_fused.launches += 1
+    count("bucket.launches.fused")
     return out
 
 
-bucket_scores_v3.launches = 0
-bucket_scores_fused.launches = 0
-bucket_scores_v2.launches = 0
-bucket_scores.launches = 0
+LAUNCH_MODES = ("v3", "fused", "v2", "raw")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches of each wrapper in this process so far, by mode
+    (the plain versions on the CPU launch none)."""
+    return {m: counter("bucket.launches." + m) for m in LAUNCH_MODES}

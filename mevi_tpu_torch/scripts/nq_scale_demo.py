@@ -171,7 +171,7 @@ def mesh_rank(dev, sorted_emb, ndoc, d, seed, offsets, doc_ids, q_h, params):
         shard = torch.zeros((per, d), dtype=torch.int8, device=dev)
         hi = min(lo + per, ndoc)
         hash_rows(lo, hi, d, seed, dev, out=shard[:max(0, hi - lo)])
-    B.bucket_scores_v3.launches = 0
+    launches0 = B.launch_counts()["v3"]
     synchronize(dev)
     shard_s = time.time() - entered
     t0 = time.perf_counter()
@@ -196,7 +196,7 @@ def mesh_rank(dev, sorted_emb, ndoc, d, seed, offsets, doc_ids, q_h, params):
     out = tuple(t.float().cpu().numpy() if t.is_floating_point()
                 else t.cpu().numpy() for t in out)
     server_s = time.perf_counter() - t0
-    launches = B.bucket_scores_v3.launches
+    launches = B.launch_counts()["v3"] - launches0
     if mesh.rank:
         return {"launches": launches}
     return {"launches": launches, "mips": mips, "mips_s": mips_s,

@@ -810,7 +810,7 @@ def sharded_rank(dev, semb, workdir, cfg, offsets, doc_ids, levels, kary,
     from .. import synchronize
     entered = time.time()
     mesh = PM.make_mesh(*mesh_shape, device=dev)
-    B.bucket_scores_v3.launches = 0
+    launches0 = B.launch_counts()["v3"]
     nci = load_nci(cfg, dev)
     tower = load_tower(cfg, osp.join(workdir, "tower_params.npz"), dev)
     index = FineIndex(offsets.to(dev), doc_ids.to(dev),
@@ -825,7 +825,7 @@ def sharded_rank(dev, semb, workdir, cfg, offsets, doc_ids, levels, kary,
         server(ids, torch.ones_like(ids)), mesh)
     out = tuple(t.cpu().numpy() for t in (scores, dids, codes))
     seconds = time.perf_counter() - t0
-    launches = B.bucket_scores_v3.launches
+    launches = B.launch_counts()["v3"] - launches0
     if mesh.rank:
         return {"launches": launches}
     return {"launches": launches, "out": out, "seconds": seconds,

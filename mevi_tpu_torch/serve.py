@@ -31,6 +31,7 @@ from .models.nci import NCIT5
 from .models.t5 import T5Model
 from .ops.bucket import ALIGN, bucket_scores_fused, bucket_scores_v3
 from .parallel.mesh import DATA_AXIS, Mesh, gather_rows
+from .utils.timers import new_batch, span
 
 
 def _query_dtype(corpus_dtype):
@@ -54,6 +55,14 @@ def serve_batch(qtower: T5Model, nci: NCIT5, query_ids, query_mask,
         sorted_emb, nci.dims.kary, cap)
     top_scores, top_ids = merge_pool(scores, ids, num_beams, cap, pool, rank)
     return top_scores, top_ids, codes, beam_scores
+
+
+class Handle(tuple):
+    """:meth:`BucketServer.query_device`'s result, unpacked as (top
+    scores, top CSR rows, beam codes, beam scores) on the device;
+    ``batch``: the batch id of its spans (None while spans are off),
+    which :meth:`BucketServer.finalize` gives its own."""
+    batch = None
 
 
 class BucketServer:
@@ -121,34 +130,38 @@ class BucketServer:
     def coarse(self, query_ids, query_mask):
         """Stage 1: (codes (B, nb, M), beam scores (B, nb), cidx (B*nb,)
         int32, q_rep (B*nb, d))."""
-        qemb = self.qtower.first_token_rep(query_ids, query_mask)
-        codes, beam_scores, _ = nci_beam_search_incremental(
-            self.nci, query_ids, query_mask, self.num_beams,
-            self.length_penalty, level_tables=self.level_tables,
-            pawa_tables=self.pawa_tables)
-        cidx = pack_codes(codes.reshape(-1, self.M), self.kary)
-        q_rep = (qemb.to(self.q_dt) * self.inv_scale).repeat_interleave(
-            self.num_beams, 0).contiguous()
+        with span("serve.coarse"):
+            with span("tower"):
+                qemb = self.qtower.first_token_rep(query_ids, query_mask)
+            codes, beam_scores, _ = nci_beam_search_incremental(
+                self.nci, query_ids, query_mask, self.num_beams,
+                self.length_penalty, level_tables=self.level_tables,
+                pawa_tables=self.pawa_tables)
+            cidx = pack_codes(codes.reshape(-1, self.M), self.kary)
+            q_rep = (qemb.to(self.q_dt) * self.inv_scale).repeat_interleave(
+                self.num_beams, 0).contiguous()
         return codes, beam_scores, cidx, q_rep
 
     @torch.inference_mode()
     def bucket(self, cidx, q_rep):
         """Stage 2: the bucket kernel -> (scores, rows), each (G, cap)."""
-        if self.bucket_kernel == "fused":
-            return bucket_scores_fused(self.sorted_emb, self.offsets_d, cidx,
-                                       q_rep, self.cap, ALIGN,
-                                       device=self.device)
-        ci = cidx.long()
-        return bucket_scores_v3(self.sorted_emb, self.offsets_d[ci],
-                                self.offsets_d[ci + 1], q_rep, self.cap,
-                                ALIGN, device=self.device)
+        with span("serve.bucket"):
+            if self.bucket_kernel == "fused":
+                return bucket_scores_fused(self.sorted_emb, self.offsets_d,
+                                           cidx, q_rep, self.cap, ALIGN,
+                                           device=self.device)
+            ci = cidx.long()
+            return bucket_scores_v3(self.sorted_emb, self.offsets_d[ci],
+                                    self.offsets_d[ci + 1], q_rep, self.cap,
+                                    ALIGN, device=self.device)
 
     @torch.inference_mode()
     def pool_topk(self, scores, rows, B: int):
         """Stage 3: per-query pool -> (top scores, top CSR rows)."""
-        return merge_pool(scores.reshape(B, -1), rows.reshape(B, -1),
-                          self.num_beams, self.cap, self.pool,
-                          self.rank_mode)
+        with span("serve.pool"):
+            return merge_pool(scores.reshape(B, -1), rows.reshape(B, -1),
+                              self.num_beams, self.cap, self.pool,
+                              self.rank_mode)
 
     def query_device(self, query_ids, query_mask,
                      cidx_override: Optional[torch.Tensor] = None):
@@ -156,32 +169,42 @@ class BucketServer:
         kernel wrapper's bounds check is the one host sync).  ``cidx_override``
         (at least B*nb int32 cluster ids, extra rows ignored) replaces
         the beam's clusters, to drive the bucket stage with occupied
-        clusters when the NCI weights are random.  Returns a handle for
-        :meth:`finalize`."""
+        clusters when the NCI weights are random.  Returns a
+        :class:`Handle` for :meth:`finalize`."""
         B = query_ids.shape[0]
-        codes, beam_scores, cidx, q_rep = self.coarse(query_ids, query_mask)
-        if cidx_override is not None:
-            cidx = cidx_override[:B * self.num_beams].to(
-                self.device, torch.int32).contiguous()
-        scores, rows = self.bucket(cidx, q_rep)
-        top_scores, top_rows = self.pool_topk(scores, rows, B)
-        return top_scores, top_rows, codes, beam_scores
+        batch = new_batch()
+        with span("serve.query_device", batch=batch):
+            codes, beam_scores, cidx, q_rep = self.coarse(query_ids,
+                                                          query_mask)
+            if cidx_override is not None:
+                cidx = cidx_override[:B * self.num_beams].to(
+                    self.device, torch.int32).contiguous()
+            scores, rows = self.bucket(cidx, q_rep)
+            top_scores, top_rows = self.pool_topk(scores, rows, B)
+        handle = Handle((top_scores, top_rows, codes, beam_scores))
+        handle.batch = batch
+        return handle
 
     def finalize(self, handle):
         """Host half: fetch, map CSR rows to doc ids.  Returns (doc
         scores (B, pool), original doc ids (B, pool), beam codes
         (B, nb, M), beam scores (B, nb), ndoc (B,)) as numpy arrays."""
-        top_scores, top_rows, codes, beam_scores = (
-            t.cpu().numpy() for t in handle)
-        B = codes.shape[0]
-        top_ids = np.where(top_rows >= 0,
-                           self.doc_ids_h[np.clip(top_rows, 0, None)],
-                           -1).astype(np.int32)
-        ci = pack_codes(codes.reshape(-1, self.M), self.kary).astype(np.int64)
-        ndoc = (self.offsets_h[ci + 1]
-                - self.offsets_h[ci]).reshape(B, self.num_beams).sum(-1)
-        return (top_scores.astype(np.float32), top_ids,
-                codes.astype(np.int32), beam_scores.astype(np.float32), ndoc)
+        with span("serve.finalize", batch=getattr(handle, "batch", None)):
+            with span("finalize.fetch"):
+                top_scores, top_rows, codes, beam_scores = (
+                    t.cpu().numpy() for t in handle)
+            with span("finalize.map"):
+                B = codes.shape[0]
+                top_ids = np.where(top_rows >= 0,
+                                   self.doc_ids_h[np.clip(top_rows, 0, None)],
+                                   -1).astype(np.int32)
+                ci = pack_codes(codes.reshape(-1, self.M),
+                                self.kary).astype(np.int64)
+                ndoc = (self.offsets_h[ci + 1] - self.offsets_h[ci]).reshape(
+                    B, self.num_beams).sum(-1)
+                return (top_scores.astype(np.float32), top_ids,
+                        codes.astype(np.int32),
+                        beam_scores.astype(np.float32), ndoc)
 
     def query(self, query_ids, query_mask):
         """Returns (doc scores (B, pool), original doc ids (B, pool),

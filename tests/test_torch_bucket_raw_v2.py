@@ -398,9 +398,10 @@ def test_cuda_launch_counts(case, cuda_device):
     st, en = (torch.from_numpy(x).to(cuda_device)
               for x in _bounds(offsets, ci))
     q = torch.from_numpy(qn).to(cuda_device)
-    n2, n1 = tb.bucket_scores_v2.launches, tb.bucket_scores.launches
+    n = tb.launch_counts()
     tb.bucket_scores_v2(semb, st, en, q, CAP)
     tb.bucket_scores(semb, tb.align_down(st), q, CAP)
     tb.bucket_scores_v2_plain(semb, st, en, q, CAP)
-    assert tb.bucket_scores_v2.launches == n2 + 1
-    assert tb.bucket_scores.launches == n1 + 1
+    after = tb.launch_counts()
+    assert after["v2"] == n["v2"] + 1
+    assert after["raw"] == n["raw"] + 1
