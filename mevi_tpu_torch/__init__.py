@@ -11,6 +11,8 @@ commands) start without it.
 
 from __future__ import annotations
 
+import functools
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for
@@ -43,6 +45,19 @@ def as_device_tensor(x, device) -> torch.Tensor:
     if not x.flags.writeable:
         x = x.copy()
     return torch.from_numpy(x).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(fn, *args, device) -> torch.Tensor:
+    """``fn(*args)``, a tensor built on the host, copied to ``device`` once
+    per (``fn``, ``args``, ``device``) and kept there.  An op on it keeps
+    its operands and bits (a host scalar in its place would not: CUDA
+    divides by one by multiplying by its reciprocal) and copies nothing
+    from the host, which a CUDA graph cannot capture.  Built outside
+    inference mode, so that autograd may read it."""
+    import torch
+    with torch.inference_mode(False):
+        return fn(*args).to(device)
 
 
 def synchronize(device: torch.device):

@@ -17,15 +17,20 @@ from typing import Tuple
 
 import torch
 
+from .. import device_constant
 from ..models.nci import NCIT5, tokens_to_codes
 from ..ops.topk import topk_stable as _topk_stable
 from ..utils.timers import span
 
 
+def _length_norm(M: int, length_penalty: float) -> torch.Tensor:
+    return torch.tensor(float(M + 1)).pow(torch.tensor(length_penalty))
+
+
 def _final_order(beam_scores, eos_lp, M: int, length_penalty: float):
     total = beam_scores + eos_lp
-    norm = total / torch.tensor(float(M + 1)).pow(
-        torch.tensor(float(length_penalty))).to(total.device)
+    norm = total / device_constant(_length_norm, M, float(length_penalty),
+                                  device=total.device)
     order = torch.sort(-norm, dim=-1, stable=True).indices
     return torch.gather(norm, -1, order), order
 
@@ -147,7 +152,7 @@ def nci_beam_search_incremental(model: NCIT5, input_ids, attention_mask,
         # path produces)
         with span("beam.topk", t=0):
             init0 = torch.full((nb,), -1e9, dtype=torch.float32, device=dev)
-            init0[0] = 0.0
+            init0[0].fill_(0.0)          # no host scalar copied in
             flat0 = (init0[None, :, None]
                      + logp0[:, None, :K]).reshape(B, nb * K)
             beam_scores, pos0 = _topk_stable(flat0, nb)

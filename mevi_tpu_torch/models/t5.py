@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .. import frozen_eval, resolve_device
+from .. import device_constant, frozen_eval, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +70,10 @@ class RMSNorm(nn.Module):
         return (self.weight.float() * y).to(x.dtype)
 
 
+def _log_f32(x: float) -> torch.Tensor:
+    return torch.log(torch.tensor(x, dtype=torch.float32))
+
+
 def relative_position_bucket(rel_pos: torch.Tensor, bidirectional: bool,
                              num_buckets: int, max_distance: int
                              ) -> torch.Tensor:
@@ -86,10 +90,10 @@ def relative_position_bucket(rel_pos: torch.Tensor, bidirectional: bool,
         n = n.clamp(min=0)
     max_exact = num_buckets // 2
     is_small = n < max_exact
-    denom = torch.log(torch.tensor(max_distance / max_exact,
-                                   dtype=torch.float32))
+    denom = device_constant(_log_f32, max_distance / max_exact,
+                            device=n.device)
     val_if_large = max_exact + (
-        torch.log(n.float() / max_exact + 1e-20) / denom.to(n.device)
+        torch.log(n.float() / max_exact + 1e-20) / denom
         * (num_buckets - max_exact)).to(torch.int32)
     val_if_large = val_if_large.clamp(max=num_buckets - 1)
     return ret + torch.where(is_small, n, val_if_large)

@@ -24,6 +24,7 @@ import torch
 
 from . import resolve_device
 from .decode.beam import nci_beam_search_incremental
+from .decode.beam_graph import BeamGraph
 from .eval.searcher import (FineIndex, _beam_scores, host_csr, merge_pool,
                             shard_pool)
 from .index.csr import pack_codes
@@ -82,7 +83,10 @@ class BucketServer:
     tables, so the beam replaces PAWA's net and delta matmul at levels
     1..M-2 by per-prefix row gathers.  When ``kary^(M-2)`` exceeds the
     tables' entry limit the server says so on stderr, serves through the
-    plain beam and leaves ``self.pawa_tables`` None."""
+    plain beam and leaves ``self.pawa_tables`` None.
+
+    On CUDA the beam replays from one CUDA graph per batch shape
+    (``decode.beam_graph.BeamGraph``); elsewhere it runs eagerly."""
 
     def __init__(self, qtower: T5Model, nci: NCIT5, index: FineIndex,
                  num_beams: int = 10, cap: int = 512, pool: int = 1000,
@@ -125,6 +129,12 @@ class BucketServer:
             except ValueError as e:
                 print(f"BucketServer: PAWA prefix tables disabled: {e}",
                       file=sys.stderr)
+        # the beam looked up at each call, so that a patch of this
+        # module's name reaches the server
+        self.beam = BeamGraph(
+            lambda *a, **k: nci_beam_search_incremental(*a, **k),
+            nci, num_beams, length_penalty, level_tables=self.level_tables,
+            pawa_tables=self.pawa_tables)
 
     @torch.inference_mode()
     def coarse(self, query_ids, query_mask):
@@ -133,10 +143,7 @@ class BucketServer:
         with span("serve.coarse"):
             with span("tower"):
                 qemb = self.qtower.first_token_rep(query_ids, query_mask)
-            codes, beam_scores, _ = nci_beam_search_incremental(
-                self.nci, query_ids, query_mask, self.num_beams,
-                self.length_penalty, level_tables=self.level_tables,
-                pawa_tables=self.pawa_tables)
+            codes, beam_scores = self.beam(query_ids, query_mask)
             cidx = pack_codes(codes.reshape(-1, self.M), self.kary)
             q_rep = (qemb.to(self.q_dt) * self.inv_scale).repeat_interleave(
                 self.num_beams, 0).contiguous()
