@@ -34,8 +34,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import data, weights
-from .reference import bert, fine, nci, t5
+from . import data, lookup, weights
+from .reference import fine, nci
 from .reference.common import F32, Precision, tf32_off
 
 NAMES = ("tower_err", "beam_err", "beam_gap", "pool_err", "pool_gap",
@@ -91,9 +91,8 @@ class Reference:
 
     def tower(self, ids, mask, P=F32):
         c = self.tower_c
-        if c["family"] == "t5":
-            return t5.first_token_rep(self.W_tower, c, ids, mask, P)
-        return bert.cls_rep(self.W_tower, c, ids, mask, P)
+        return lookup.reference(c["family"]).rep(self.W_tower, c, ids, mask,
+                                                 P)
 
     def windows(self, cidx):
         s = self.cfg["serving"]
@@ -103,7 +102,7 @@ class Reference:
 
 def tower_specs(cfg):
     c = cfg["tower"]
-    return t5.tower_specs(c) if c["family"] == "t5" else bert.tower_specs(c)
+    return lookup.reference(c["family"]).tower_specs(c)
 
 
 def readings(ref: Reference, sm: Sample) -> Dict[str, float]:

@@ -8,7 +8,8 @@ A multiply-add is 2 operations.  Counted, per the inputs:
 * an encoder over each query's real (unmasked) tokens: the q, k, v, o
   and feed-forward products per token, and attention over the query's
   own tokens (scores and context, ``4 * l * d`` per token);
-* the T5 tower's decoder at its start token: self-attention and
+* a query tower by its family's own count (``perfbench/towers/``); the
+  T5 tower's decoder at its start token: self-attention and
   feed-forward over one row, cross-attention's q and o on that row, its
   k and v over the encoder's ``l`` states, attention over them;
 * the NCI beam's ``M + 1`` decoder steps with a KV cache: step 0 over one
@@ -30,12 +31,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import lookup
+
 # NVIDIA H100 SXM data sheet, dense, at its 700 W limit
 H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
 
-def _encoder_layer(l, d, d_ff):
+def encoder_layer_flops(l, d, d_ff):
     """One post- or pre-norm encoder layer over a query of ``l`` real
     tokens: 4 square products and the feed-forward a token, attention
     over the query."""
@@ -43,24 +46,15 @@ def _encoder_layer(l, d, d_ff):
 
 
 def t5_encoder_flops(lengths, c):
-    return sum(c["num_layers"] * _encoder_layer(int(l), c["d_model"],
-                                                c["d_ff"]) for l in lengths)
+    return sum(c["num_layers"]
+               * encoder_layer_flops(int(l), c["d_model"], c["d_ff"])
+               for l in lengths)
 
 
 def tower_flops(lengths, c):
-    """The query tower over a batch with these real lengths."""
-    d, ff = c["d_model"], c["d_ff"]
-    if c["family"] == "bert":
-        return sum(c["num_layers"] * _encoder_layer(int(l), d, ff)
-                   for l in lengths)
-    enc = t5_encoder_flops(lengths, c)
-    # the start token: self-attn q,k,v,o; cross q,o; feed-forward; cross
-    # k,v over l states and attention over them (and over itself)
-    row = 8 * d * d + 4 * d * d + 4 * d * ff + 4 * d
-    dec = sum(c["num_decoder_layers"] * (row + 4 * int(l) * d * d
-                                         + 4 * int(l) * d)
-              for l in lengths)
-    return enc + dec
+    """The query tower over a batch with these real lengths: its
+    family's count (``perfbench/towers/<family>.py``)."""
+    return lookup.tower(c["family"]).flops(lengths, c)
 
 
 def beam_flops(lengths, c, num_beams):

@@ -4,7 +4,9 @@ comparison with the reference, and the result line.
 Everything a cell needs is found by name: its file
 ``perfbench/workloads/<cell>.json`` (configuration, traffic kind and
 parameters, limits), the configuration ``perfbench/configs/<config>.json``,
-the traffic module ``perfbench/traffic/<kind>.py`` and, for each
+the traffic module ``perfbench/traffic/<kind>.py``, the query tower's
+family ``perfbench/towers/<family>.py`` with its plain reference
+``perfbench/reference/<family>.py`` (``lookup.py``) and, for each
 per-layer metric ``BENCHMARK.json`` gives the cell, the reader
 ``perfbench/metrics/<metric>.py``.
 
@@ -16,7 +18,6 @@ The program under test is ``mevi_tpu_torch``: its models and
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import os
 import sys
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from . import compare, counts, data, weights
+from .lookup import load_module, tower as tower_family
 from .reference import nci as ref_nci
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,13 +43,6 @@ def log(*a):
 def load_json(*parts):
     with open(os.path.join(*parts)) as fr:
         return json.load(fr)
-
-
-def load_module(path: str, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def cell_metrics(bench, cell: str, kind: str) -> List[dict]:
@@ -68,17 +63,17 @@ def forbidden_modules() -> List[str]:
 
 class TowerTap:
     """The query tower as ``BucketServer`` calls it (``first_token_rep``),
-    whatever the family's own name for the representation; keeps each
-    output for the comparison (a reference, no copy)."""
+    whatever the family's own name for the representation; keeps only
+    its last output (``last``), which the traffic takes beside the
+    batch's handle."""
 
     def __init__(self, rep):
         self.rep = rep
-        self.outputs: List[torch.Tensor] = []
+        self.last: Optional[torch.Tensor] = None
 
     def first_token_rep(self, ids, mask):
-        q = self.rep(ids, mask)
-        self.outputs.append(q)
-        return q
+        self.last = self.rep(ids, mask)
+        return self.last
 
 
 def build_program(cfg, seed: int, corpus: data.Corpus, dev):
@@ -86,7 +81,7 @@ def build_program(cfg, seed: int, corpus: data.Corpus, dev):
     server over the corpus, laid out by the port's CSR."""
     from mevi_tpu_torch.eval.searcher import FineIndex
     from mevi_tpu_torch.models.nci import NCIDims, NCIT5
-    from mevi_tpu_torch.models.t5 import T5Dims, T5Model
+    from mevi_tpu_torch.models.t5 import T5Dims
     from mevi_tpu_torch.serve import BucketServer
     from mevi_tpu_torch.utils.native import build_csr
 
@@ -125,27 +120,7 @@ def build_program(cfg, seed: int, corpus: data.Corpus, dev):
     tc = cfg["tower"]
     tw = weights.make(compare.tower_specs(cfg), seed, weights.TOWER_STREAM,
                       dev, dt)
-    if tc["family"] == "t5":
-        tower = T5Model(dataclasses.replace(
-            t5, vocab_size=tc["vocab_size"], d_model=tc["d_model"],
-            d_kv=tc["d_kv"], d_ff=tc["d_ff"], num_heads=tc["num_heads"],
-            num_layers=tc["num_layers"],
-            num_decoder_layers=tc["num_decoder_layers"]),
-            device=dev, dtype=dt)
-        tower.load_state_dict(tw)
-        tap = TowerTap(tower.first_token_rep)
-    else:
-        from mevi_tpu_torch.models.bert import BertDims, BertEncoderModel
-        tower = BertEncoderModel(BertDims(
-            vocab_size=tc["vocab_size"], d_model=tc["d_model"],
-            num_layers=tc["num_layers"], num_heads=tc["num_heads"],
-            d_ff=tc["d_ff"],
-            max_position_embeddings=tc["max_position_embeddings"],
-            type_vocab_size=tc["type_vocab_size"],
-            layer_norm_epsilon=tc["layer_norm_epsilon"], dropout_rate=0.0,
-            dtype=dt), device=dev, dtype=dt)
-        tower.load_state_dict(tw)
-        tap = TowerTap(tower.cls_rep)
+    tap = TowerTap(tower_family(tc["family"]).build(tc, tw, dev, dt))
     del tw
     server = BucketServer(tap, nci, index, num_beams=sv["num_beams"],
                           cap=sv["cap"], pool=sv["pool"],

@@ -34,8 +34,8 @@ def ranged(name: str, on: bool = True):
 class Served:
     """Rows kept from each served batch: a few drawn from the seed and
     the batch's longest query.  ``rows[i]``: row positions of batch
-    ``i``; its outputs, and the tower output the tap saw, are kept as
-    the batch finishes."""
+    ``i``; their outputs, and their rows of the tower output the tap
+    saw, are kept as the batch finishes."""
 
     def __init__(self, lengths: np.ndarray, batch: int, seed: int,
                  per_batch: int):
@@ -50,7 +50,7 @@ class Served:
             self.rows.append(np.array(sorted(pick)))
         self.batch = batch
         self.out = {}           # batch index -> (codes, beam, pool ids, scores)
-        self.q = {}             # batch index -> tower output (device)
+        self.q = {}             # batch index -> its kept tower rows (device)
         self.failed = 0
         self.first_error = None
 
@@ -58,7 +58,8 @@ class Served:
         r = self.rows[i]
         scores, ids, codes, beam, _ = out
         self.out[i] = (codes[r], beam[r], ids[r], scores[r])
-        self.q[i] = q
+        # a copy of the kept rows: no view holds the batch's hidden state
+        self.q[i] = q.index_select(0, torch.as_tensor(r, device=q.device))
 
     def fail(self, n: int):
         self.failed += n
@@ -84,9 +85,10 @@ class Served:
         mask = queries.mask[g].cpu()
         cidx = queries.cidx.reshape(-1, nb)[g].cpu()
         rows = [cand[j] for j in take]
-        q = torch.stack([self.q[i][r].float().cpu() for i, r in rows])
         pick = [self.out[i] for i, _ in rows]
         pos = [int(np.searchsorted(self.rows[i], r)) for i, r in rows]
+        q = torch.stack([self.q[i][k].float().cpu()
+                         for (i, _), k in zip(rows, pos)])
         codes = torch.from_numpy(np.stack([p[0][k] for p, k in zip(pick, pos)]))
         beam = torch.from_numpy(np.stack([p[1][k] for p, k in zip(pick, pos)]))
         pid = np.stack([p[2][k] for p, k in zip(pick, pos)])

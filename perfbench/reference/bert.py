@@ -40,8 +40,8 @@ def tower_specs(c):
     return out
 
 
-def cls_rep(W, c, ids, mask, P=F32):
-    """(b, d) CLS states; token types all 0."""
+def rep(W, c, ids, mask, P=F32):
+    """(b, d) CLS states (the port's ``cls_rep``); token types all 0."""
     d, h = c["d_model"], c["num_heads"]
     dk = d // h
     eps = c["layer_norm_epsilon"]

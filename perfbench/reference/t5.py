@@ -2,7 +2,7 @@
 relative position bias in each stack's first block, shared onward) as
 HF's ``modeling_t5`` defines it, over a dict of weights named as the
 port's ``state_dict``.  The T5-ANCE query representation is the decoder's
-state at its start token (``first_token_rep``)."""
+state at its start token (``rep``, the port's ``first_token_rep``)."""
 
 from __future__ import annotations
 
@@ -132,7 +132,7 @@ def decode(W, c, tokens, emb_table, enc, enc_mask, n_layers, P=F32,
                      additive_mask(enc_mask), P)
 
 
-def first_token_rep(W, c, ids, mask, P=F32):
+def rep(W, c, ids, mask, P=F32):
     """(b, d): the decoder's hidden state at its start token 0."""
     enc = encode(W, c, ids, mask, P)
     start = torch.zeros((ids.shape[0], 1), dtype=torch.long,

@@ -10,6 +10,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips without one")
+    # one thread a process, as a benchmark run has (``run.py``): a timed
+    # window serves as many batches with several test workers as alone
+    import torch
+    torch.set_num_threads(1)
 
 
 @pytest.fixture

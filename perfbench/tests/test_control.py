@@ -8,12 +8,11 @@ import pytest
 import torch
 
 from perfbench import compare, harness
-from perfbench.tests.tiny import tiny
+from perfbench.tests.tiny import CELLS, tiny
 
 
 @pytest.mark.parametrize("seed", [2**31 + 5, 2**31 + 77, 2**33 + 1])
-@pytest.mark.parametrize("name,family", [("marco.b512", "t5"),
-                                         ("nqdpr.b512-cap4096", "bert")])
+@pytest.mark.parametrize("name,family", CELLS)
 def test_control_fails_where_the_program_passes(name, family, seed):
     cell, cfg = tiny(name, family)
     keep = {}

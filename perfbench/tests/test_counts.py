@@ -7,7 +7,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from perfbench import counts, harness, weights
-from perfbench.tests.tiny import tiny
+from perfbench.tests.tiny import FAMILIES, tiny
 
 # FlopCounterMode counts the products the port dispatches.  The counts
 # differ from it by the context products of the cached decode steps'
@@ -33,7 +33,7 @@ def _flops(fn):
     return float(fc.get_total_flops())
 
 
-@pytest.mark.parametrize("family", ["t5", "bert"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_tower_flops_match_the_dispatched_products(family):
     cfg, server, tap = _program(family)
     L = cfg["serving"]["query_length"]

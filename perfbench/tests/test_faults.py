@@ -10,9 +10,8 @@ import pytest
 import torch
 
 import mevi_tpu_torch.serve as serve
-from mevi_tpu_torch.models.t5 import T5Model
-from perfbench import harness
-from perfbench.tests.tiny import tiny
+from perfbench import harness, lookup
+from perfbench.tests.tiny import CELLS, tiny
 
 
 def run(name="marco.b512", family="t5"):
@@ -21,8 +20,7 @@ def run(name="marco.b512", family="t5"):
                             torch.device("cpu"), time.time())
 
 
-@pytest.mark.parametrize("name,family", [("marco.b512", "t5"),
-                                         ("nqdpr.b512-cap4096", "bert")])
+@pytest.mark.parametrize("name,family", CELLS)
 def test_unbroken_runs_are_correct(name, family):
     assert run(name, family)["correct"]
 
@@ -34,8 +32,7 @@ def _half(t):
     return torch.cat([t[:h], t[:t.shape[0] - h]])
 
 
-@pytest.mark.parametrize("name,family", [("marco.b512", "t5"),
-                                         ("nqdpr.b512-cap4096", "bert")])
+@pytest.mark.parametrize("name,family", CELLS)
 def test_answer_altered_in_the_pool(monkeypatch, name, family):
     real = serve.merge_pool
 
@@ -70,13 +67,16 @@ def test_half_the_batch_left_out_of_the_beam(monkeypatch):
     assert not run()["correct"]
 
 
-def test_half_the_batch_left_out_of_the_tower(monkeypatch):
-    real = T5Model.first_token_rep
+@pytest.mark.parametrize("name,family", CELLS)
+def test_half_the_batch_left_out_of_the_tower(monkeypatch, name, family):
+    fam = lookup.tower(family)
+    real = fam.build
 
-    def half(self, ids, mask=None):
-        return _half(real(self, _half(ids), _half(mask)))
-    monkeypatch.setattr(T5Model, "first_token_rep", half)
-    assert not run()["correct"]
+    def build(*a, **k):
+        rep = real(*a, **k)
+        return lambda ids, mask: _half(rep(_half(ids), _half(mask)))
+    monkeypatch.setattr(fam, "build", build)
+    assert not run(name, family)["correct"]
 
 
 def test_half_the_buckets_left_out(monkeypatch):

@@ -59,6 +59,9 @@ def test_every_name_in_benchmark_json_has_its_file():
         assert cell["traffic"]["name"] == w["traffic"]
         assert os.path.exists(os.path.join(HERE, "traffic",
                                            cell["traffic"]["kind"] + ".py"))
+        for d in ("towers", "reference"):
+            assert os.path.exists(os.path.join(
+                HERE, d, cfg["tower"]["family"] + ".py"))
         assert set(cell["limits"]) == set(harness.compare.NAMES)
     for m in bench["per_layer"]:
         assert os.path.exists(os.path.join(HERE, "metrics",

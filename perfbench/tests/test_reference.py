@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from perfbench import compare, harness
-from perfbench.tests.tiny import tiny
+from perfbench.tests.tiny import FAMILIES, tiny
 
 CPU = torch.device("cpu")
 
@@ -23,7 +23,7 @@ def served(cell="marco.b512", family="t5", dtype="bfloat16", seed=11):
     return cell, res, keep
 
 
-@pytest.mark.parametrize("family", ["t5", "bert"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_port_in_float32_agrees_with_the_reference(family):
     cell, res, keep = served(family=family, dtype="float32")
     n = keep["numbers"]
@@ -32,7 +32,7 @@ def test_port_in_float32_agrees_with_the_reference(family):
     assert n["pool_gap"] == 0 and n["pool_faults"] == 0, n
 
 
-@pytest.mark.parametrize("family", ["t5", "bert"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_port_in_bfloat16_is_correct(family):
     cell, res, keep = served(family=family)
     assert res["correct"], res["checks"]

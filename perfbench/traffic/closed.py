@@ -54,11 +54,11 @@ def warm(ctx):
             ctx.server.finalize(h)
         h = nxt
     ctx.server.finalize(h)
-    ctx.tap.outputs.clear()
 
 
 class _Stream:
-    """Issues batch i, finalizes batch i - 1, keeping their rows."""
+    """Issues batch i, finalizes batch i - 1, keeping their rows.  A
+    batch in flight is its handle and the tower output the tap saw."""
 
     def __init__(self, ctx, traced=False):
         self.ctx, self.st, self.traced = ctx, ctx.state, traced
@@ -68,8 +68,9 @@ class _Stream:
 
     def issue(self):
         try:
-            self.h_next = loop.issue(self.srv, _batch(
-                self.ctx, self.st["queries"], self.i))
+            h = loop.issue(self.srv, _batch(self.ctx, self.st["queries"],
+                                            self.i))
+            self.h_next = (h, self.ctx.tap.last)
         except Exception:
             self.served.fail(self.st["B"])
             self.h_next = None
@@ -88,12 +89,12 @@ class _Stream:
         t0 = time.perf_counter()
         try:
             with loop.ranged("finalize", self.traced):
-                out = self.srv.finalize(h)
+                out = self.srv.finalize(h[0])
         except Exception:
             self.served.fail(self.st["B"])
             return time.perf_counter() - t0
         secs = time.perf_counter() - t0
-        self.served.keep(i % self.st["n"], out, self.ctx.tap.outputs[i])
+        self.served.keep(i % self.st["n"], out, h[1])
         return secs
 
 
@@ -184,7 +185,7 @@ def traced(ctx, seconds):
     lens = st["queries"].lengths.reshape(-1, st["B"]).cpu().numpy()
     cidx = st["queries"].cidx.reshape(-1, st["B"] * st["nb"]).cpu().numpy()
     issued = range(first, first + N)
-    bb = [ctx.bucket_counts(cidx[i]) for i in issued]
+    bb = [ctx.bucket_counts(cidx[i % st["n"]]) for i in issued]
     win = Window(trace=tr, n=N, bucket_bytes=sum(b[0] for b in bb),
                  bucket_flops=sum(b[1] for b in bb), finalize_s=fin,
                  wall_flops=sum(ctx.model_flops(lens[i % st["n"]])
