@@ -132,7 +132,7 @@ class ModelConfig:
 class EncoderConfig:
     """Twin-tower encoder config (``MEVI/document_encoder.py:28-120``)."""
 
-    family: str = "t5"               # 't5' (ANCE) | 'bert'
+    family: str = "t5"               # 't5' (ANCE) | 'bert' | 'deepseek_v2'
     tied: bool = True                # share query/passage towers
     normalize: bool = False
     d_model: int = 768
@@ -149,6 +149,20 @@ class EncoderConfig:
     query_length: int = 32           # main.py:742-744
     doc_length: int = 128            # co_doc_length main.py:535
     dtype: str = "float32"
+    # family 'deepseek_v2' only: HF config.json keys of the widths the
+    # fields above do not give (MLA, experts, RoPE; ``rope_scaling`` is
+    # required, other missing keys are DeepSeek-V2-Lite's,
+    # ``models.deepseek_v2.DeepseekV2Dims``).  Left out of the JSON form and the artifact key while None, so that a
+    # config of the other families reads and hashes as the JAX
+    # package's.
+    deepseek_v2: Optional[dict] = None
+
+
+def _encoder_dict(enc: EncoderConfig) -> dict:
+    out = dataclasses.asdict(enc)
+    if out["deepseek_v2"] is None:
+        del out["deepseek_v2"]
+    return out
 
 
 @dataclass
@@ -249,7 +263,9 @@ class MEVIConfig:
         return self
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        raw = dataclasses.asdict(self)
+        raw["encoder"] = _encoder_dict(self.encoder)
+        return json.dumps(raw, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "MEVIConfig":
@@ -270,6 +286,6 @@ class MEVIConfig:
         """Content-address artifacts by config hash (the reference keys
         them by config+epoch+time_str, ``main_models.py:2944-2978``)."""
         blob = json.dumps([dataclasses.asdict(self.rq),
-                           dataclasses.asdict(self.encoder), parts],
+                           _encoder_dict(self.encoder), parts],
                           sort_keys=True, default=str)
         return hashlib.sha1(blob.encode()).hexdigest()[:16]

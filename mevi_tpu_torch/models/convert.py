@@ -9,7 +9,9 @@ Covers the reference's model zoo (``document_encoder.py:134-198``,
 * AR2 DPR-style dicts with ``ctx_model.`` / ``question_model.``
   prefixes (``document_encoder.py:156-178``),
 * reference NCI Lightning checkpoints (the T5 mapping plus the NCI
-  extras: decode embeddings, the PAWA adaptor, ``adaptor_linear``).
+  extras: decode embeddings, the PAWA adaptor, ``adaptor_linear``),
+* HF ``DeepseekV2ForCausalLM`` (DeepSeek-V2-Lite as a query tower; the
+  routed experts stacked, the port's layout).
 
 HF ``Linear`` weights are already ``(out, in)``, the port's layout, so
 the tensors go over as they are (no flax detour): only names change,
@@ -191,6 +193,49 @@ def convert_bert_model(sd: SD, num_layers: int) -> Out:
     return out
 
 
+# --------------------------------------------------------------------------
+# DeepSeek-V2 (a decoder LLM as the query tower)
+# --------------------------------------------------------------------------
+
+_MLA = ("q_proj", "kv_a_proj_with_mqa", "kv_a_layernorm", "kv_b_proj",
+        "o_proj")
+_SWIGLU = ("gate_proj", "up_proj", "down_proj")
+
+
+def convert_deepseek_v2(sd: SD, num_layers: int) -> Out:
+    """HF ``DeepseekV2ForCausalLM`` / ``DeepseekV2Model`` -> the port's
+    ``DeepseekV2Model`` over its first ``num_layers`` layers (a pipeline
+    stage; the final norm kept, the LM head dropped).  Each MoE layer's
+    ``mlp.experts.{e}.{gate,up,down}_proj.weight`` are stacked over ``e``
+    into ``mlp.experts.{gate,up,down}_proj``; a layer is an MoE layer when
+    the checkpoint holds its ``mlp.gate.weight``."""
+    pre = "model." if "model.embed_tokens.weight" in sd else ""
+    out: Out = {"embed_tokens.weight": _t(sd[f"{pre}embed_tokens.weight"]),
+                "norm.weight": _t(sd[f"{pre}norm.weight"])}
+    for i in range(num_layers):
+        p, q = f"{pre}layers.{i}.", f"layers.{i}."
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{q}{n}.weight"] = _t(sd[f"{p}{n}.weight"])
+        for n in _MLA:
+            out[f"{q}self_attn.{n}.weight"] = _t(
+                sd[f"{p}self_attn.{n}.weight"])
+        m, qm = f"{p}mlp.", f"{q}mlp."
+        if f"{m}gate.weight" not in sd:
+            for n in _SWIGLU:
+                out[f"{qm}{n}.weight"] = _t(sd[f"{m}{n}.weight"])
+            continue
+        out[f"{qm}gate.weight"] = _t(sd[f"{m}gate.weight"])
+        n_exp = 0
+        while f"{m}experts.{n_exp}.gate_proj.weight" in sd:
+            n_exp += 1
+        for n in _SWIGLU:
+            out[f"{qm}experts.{n}"] = torch.stack(
+                [_t(sd[f"{m}experts.{e}.{n}.weight"]) for e in range(n_exp)])
+            out[f"{qm}shared_experts.{n}.weight"] = _t(
+                sd[f"{m}shared_experts.{n}.weight"])
+    return out
+
+
 def split_ar2_checkpoint(sd: SD) -> Dict[str, Dict[str, object]]:
     """AR2/DPR dict with ``ctx_model.`` / ``question_model.`` prefixes ->
     two plain BERT state dicts (``document_encoder.py:160-178``)."""
@@ -204,9 +249,12 @@ def split_ar2_checkpoint(sd: SD) -> Dict[str, Dict[str, object]]:
 
 
 def convert_tower(sd: SD, family: str, num_layers: int) -> Out:
-    """A twin tower's state dict (T5 12 + 12 or BERT) from an HF dict."""
+    """A twin tower's state dict (T5 12 + 12, BERT, or the first
+    ``num_layers`` of DeepSeek-V2) from an HF dict."""
     if family == "t5":
         return convert_t5_model(sd, num_layers, num_layers)
+    if family == "deepseek_v2":
+        return convert_deepseek_v2(sd, num_layers)
     return convert_bert_model(sd, num_layers)
 
 

@@ -4,6 +4,9 @@ reference's DocumentEncoder, ``MEVI/document_encoder.py``).
 * T5 family (T5-ANCE): representation = decoder token-0 hidden state
   with a single zero decoder input,
 * BERT family (coCondenser / AR2-ERNIE): CLS hidden state,
+* DeepSeek-V2 family (a decoder LLM as the query tower, as RepLLaMA):
+  the final norm's output at the last real token (port only; serving
+  only, no training path),
 * in-batch-negative contrastive loss with the reference's target layout:
   with p_reps grouped per query (1 positive + n negatives),
   ``target_i = i * (n_p // n_q)``; with ``axis_name`` the reps are
@@ -19,19 +22,22 @@ from torch import nn
 
 from ..parallel.mesh import gather_rows
 from .bert import BertDims, BertEncoderModel
+from .deepseek_v2 import DeepseekV2Dims, DeepseekV2Model
 from .t5 import T5Dims, T5Model
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Tower(NamedTuple):
-    family: str          # 't5' | 'bert'
-    module: nn.Module    # T5Model | BertEncoderModel
+    family: str          # 't5' | 'bert' | 'deepseek_v2'
+    module: nn.Module    # T5Model | BertEncoderModel | DeepseekV2Model
 
     def rep(self, input_ids, attention_mask, token_type_ids=None
             ) -> torch.Tensor:
         if self.family == "t5":
             return self.module.first_token_rep(input_ids, attention_mask)
+        if self.family == "deepseek_v2":
+            return self.module.last_token_rep(input_ids, attention_mask)
         return self.module.cls_rep(input_ids, attention_mask,
                                    token_type_ids)
 
@@ -43,6 +49,9 @@ def make_tower(family: str, dims=None, device="cuda",
     if family == "t5":
         dims = dims or T5Dims(num_decoder_layers=12)  # t5-ance: full dec
         return Tower("t5", T5Model(dims, device=device, dtype=dtype))
+    if family == "deepseek_v2":
+        return Tower(family, DeepseekV2Model(dims or DeepseekV2Dims(),
+                                             device=device, dtype=dtype))
     dims = dims or BertDims()
     return Tower("bert", BertEncoderModel(dims, device=device, dtype=dtype))
 
@@ -54,7 +63,28 @@ def tower_from_config(enc_cfg, device="cuda", dtype=torch.float32,
     compute dtype of either family (the JAX package's BERT tower ignores
     it and computes in float32), ``dtype`` the parameters'.  ``remat``:
     recompute each T5 block in the backward (the BERT family has no
-    remat)."""
+    remat).  The ``deepseek_v2`` family computes in its parameters'
+    dtype and takes ``d_model``, ``num_layers``, ``num_heads``, ``d_ff``
+    (the dense layer's width), ``vocab_size`` and ``layer_norm_epsilon``
+    from the config's fields, its other widths from ``enc_cfg.deepseek_v2``
+    (HF config keys), which may not contradict the fields."""
+    if enc_cfg.family == "deepseek_v2":
+        if remat:
+            raise ValueError("deepseek_v2 towers have no training path")
+        fields = dict(hidden_size=enc_cfg.d_model,
+                      num_hidden_layers=enc_cfg.num_layers,
+                      num_attention_heads=enc_cfg.num_heads,
+                      intermediate_size=enc_cfg.d_ff,
+                      vocab_size=enc_cfg.vocab_size,
+                      rms_norm_eps=enc_cfg.layer_norm_epsilon)
+        hf = dict(enc_cfg.deepseek_v2 or {})
+        clash = sorted(k for k, v in fields.items() if hf.get(k, v) != v)
+        if clash:
+            raise ValueError(f"deepseek_v2 keys {clash} contradict the "
+                             "encoder config's fields")
+        dims = DeepseekV2Dims.from_config({**hf, **fields})
+        return Tower("deepseek_v2", DeepseekV2Model(dims, device=device,
+                                                    dtype=dtype))
     if enc_cfg.family == "t5":
         dims = T5Dims(
             d_model=enc_cfg.d_model, num_layers=enc_cfg.num_layers,
