@@ -572,6 +572,7 @@ def compare_pools(tag, kern, plain, atol=1e-3):
 def serve_stages(server, ids, mask, cidx_override):
     """One batch through the public stages, synchronized between them;
     returns (per-stage ms, finalized outputs, (cidx, q_rep))."""
+    from mevi_tpu_torch.serve import Handle
     B = ids.shape[0]
     t0 = time.perf_counter()
     codes, bsc, cidx, q_rep = server.coarse(ids, mask)
@@ -579,11 +580,13 @@ def serve_stages(server, ids, mask, cidx_override):
         cidx = cidx_override
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    scores, rows = server.bucket(cidx, q_rep)
+    scores, rows, fault = server.bucket(cidx, q_rep)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     ts, tr = server.pool_topk(scores, rows, B)
-    out = server.finalize((ts, tr, codes, bsc))
+    handle = Handle((ts, tr, codes, bsc))
+    handle.fault = fault
+    out = server.finalize(handle)
     t3 = time.perf_counter()
     ms = {"coarse_ms": (t1 - t0) * 1e3, "bucket_ms": (t2 - t1) * 1e3,
           "pool_finalize_ms": (t3 - t2) * 1e3}
@@ -3264,7 +3267,7 @@ def bench_phase(cfg, dev, ndoc=None):
     ids, mask, ov = keep.pop("batches")[-1]
     B = ids.shape[0]
     _, _, _, q_rep = server.coarse(ids, mask)
-    kern = server.pool_topk(*server.bucket(ov, q_rep), B)
+    kern = server.pool_topk(*server.bucket(ov, q_rep)[:2], B)
     err, n_sep = compare_pools("10b_plain", kern,
                                pool_with_plain(server, ov, q_rep, B))
     emit(phase="10b_plain_check", max_abs_pool_err=err, ids_compared=n_sep)

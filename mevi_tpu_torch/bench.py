@@ -36,8 +36,7 @@ the JAX line (``BENCH_r05.json`` ``parsed``), measured here on the card:
 * ``metric`` / ``value`` / ``unit``: served queries/s: every timed batch
   enqueued by ``query_device``, then each ``finalize``d (device outputs
   fetched, rows mapped to doc ids), on the host clock.  The port's
-  ``query_device`` syncs once a batch on the kernel wrapper's bounds
-  check, where the JAX server enqueues without waiting;
+  ``query_device``, like the JAX server, enqueues without waiting;
 * ``vs_baseline``: ``value`` over ``baseline_qps_measured``;
 * ``ndoc``, ``batch``, ``cap``, ``pipeline`` (``cidx_override`` or
   ``trained``), ``corpus_dtype`` (``bf16``, ``int8``, or ``f32`` on the
@@ -304,7 +303,7 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
             host.choice(cidx_all, size=g).astype(np.int32)).to(dev)
         q_s = torch.from_numpy(host.normal(size=(g, D)).astype(
             np.float32)).to(dev).to(server.q_dt)
-        k_s, k_r = server.bucket(cidx_s, q_s)
+        k_s, k_r, _ = server.bucket(cidx_s, q_s)
         o_s, o_r = Bk.bucket_scores_fused_plain(semb, server.offsets_d,
                                                 cidx_s, q_s, CAP)
         if not torch.equal(k_r, o_r):

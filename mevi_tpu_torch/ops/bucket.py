@@ -31,8 +31,11 @@ the raw kernel reads the whole clipped window.  See the source note in
 A wrapper takes the plain PyTorch version below only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each wrapper
 counts its launches in the counter ``bucket.launches.<mode>`` of
-``utils.timers`` (:func:`launch_counts`); a bounds check that waits for
-the device to fetch its answer is the span ``bucket.bounds_check``.
+``utils.timers`` (:func:`launch_counts`).  Each checks its bounds or
+cluster ids before the launch by fetching a reduction of them, which
+waits for the device's queue: the span ``bucket.bounds_check``.  A
+caller that has proven them (``serve.BucketServer``: its CSR at build,
+its ids on the device) skips that wait with ``host_check=False``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ _BUILD = Path(__file__).resolve().parents[2] / "build"
 _SEMB_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_CHUNK = 256          # buckets per gathered block in the plain path
+CIDX_ERROR = ("cidx must index offsets, and offsets must rise from >= 0 "
+              "to <= N")
 
 
 # ---------------------------------------------------------------------------
@@ -265,12 +270,15 @@ def _launch_raw(semb, starts, qemb, cap):
 
 
 def bucket_scores_v3(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
-                     device="cuda"):
+                     device="cuda", host_check: bool = True):
     """Bucket scores from given CSR bounds.
 
     semb (N, d) bf16/f32/int8; starts, ends (G,) int32; qemb (G, d)
-    bf16/f32 -> (scores (G, cap) f32, rows (G, cap) int32)."""
-    dev = _check_bounds(semb, starts, ends, qemb, cap, align, device)
+    bf16/f32 -> (scores (G, cap) f32, rows (G, cap) int32).
+    ``host_check=False``: the caller guarantees ``0 <= s <= e <= N``, and
+    the bounds are not fetched to check it."""
+    dev = _check_bounds(semb, starts, ends, qemb, cap, align, device,
+                        host_check)
     if dev.type == "cpu":
         return bucket_scores_v3_plain(semb, starts, ends, qemb, cap, align)
     out = _launch(semb, qemb, cap, align, starts=starts, ends=ends)
@@ -278,12 +286,13 @@ def bucket_scores_v3(semb, starts, ends, qemb, cap: int, align: int = ALIGN,
     return out
 
 
-def _check_bounds(semb, starts, ends, qemb, cap, align, device):
+def _check_bounds(semb, starts, ends, qemb, cap, align, device,
+                  host_check=True):
     dev = _check(semb, qemb, cap, align,
                  [("starts", starts), ("ends", ends)], device)
     if starts.shape != ends.shape or starts.shape[0] != qemb.shape[0]:
         raise ValueError("starts, ends and qemb must have G rows")
-    if starts.numel():
+    if host_check and starts.numel():
         with span("bucket.bounds_check"):
             lo, hi, bad = torch.stack([starts.min().long(),
                                        ends.max().long(),
@@ -329,19 +338,22 @@ def bucket_scores(semb, starts, qemb, cap: int, device="cuda"):
 
 
 def bucket_scores_fused(semb, offsets, cidx, qemb, cap: int,
-                        align: int = ALIGN, device="cuda"):
+                        align: int = ALIGN, device="cuda",
+                        host_check: bool = True):
     """Bucket scores with the CSR lookup inside the kernel.
 
     offsets (C+1,) int32 flat CSR offsets; cidx (G,) int32 packed
     cluster ids (the same ids the JAX fused kernel takes); the rest as
-    :func:`bucket_scores_v3`."""
+    :func:`bucket_scores_v3`.  ``host_check=False``: the caller
+    guarantees that the offsets rise from >= 0 to <= N and that every
+    id lies in ``[0, C)``, and neither is fetched to check it."""
     dev = _check(semb, qemb, cap, align,
                  [("offsets", offsets), ("cidx", cidx)], device)
     if cidx.shape[0] != qemb.shape[0]:
         raise ValueError("cidx and qemb must have G rows")
     if offsets.shape[0] < 2:
         raise ValueError("offsets must hold C + 1 >= 2 entries")
-    if cidx.numel():
+    if host_check and cidx.numel():
         with span("bucket.bounds_check"):
             lo, hi, first, last, bad = torch.stack([
                 cidx.min().long(), cidx.max().long(), offsets[0].long(),
@@ -349,8 +361,7 @@ def bucket_scores_fused(semb, offsets, cidx, qemb, cap: int,
                 (offsets[1:] < offsets[:-1]).sum()]).tolist()
         if (lo < 0 or hi >= offsets.shape[0] - 1 or first < 0
                 or last > semb.shape[0] or bad):
-            raise ValueError("cidx must index offsets, and offsets must "
-                             "rise from >= 0 to <= N")
+            raise ValueError(CIDX_ERROR)
     if dev.type == "cpu":
         return bucket_scores_fused_plain(semb, offsets, cidx, qemb, cap,
                                          align)

@@ -30,9 +30,10 @@ from .eval.searcher import (FineIndex, _beam_scores, host_csr, merge_pool,
 from .index.csr import pack_codes
 from .models.nci import NCIT5
 from .models.t5 import T5Model
-from .ops.bucket import ALIGN, bucket_scores_fused, bucket_scores_v3
+from .ops.bucket import (ALIGN, CIDX_ERROR, bucket_scores_fused,
+                         bucket_scores_v3)
 from .parallel.mesh import DATA_AXIS, Mesh, gather_rows
-from .utils.timers import new_batch, span
+from .utils.timers import count, new_batch, span
 
 
 def _query_dtype(corpus_dtype):
@@ -62,8 +63,28 @@ class Handle(tuple):
     """:meth:`BucketServer.query_device`'s result, unpacked as (top
     scores, top CSR rows, beam codes, beam scores) on the device;
     ``batch``: the batch id of its spans (None while spans are off),
-    which :meth:`BucketServer.finalize` gives its own."""
+    which :meth:`BucketServer.finalize` gives its own; ``fault``: a 0-dim
+    bool device tensor, true if a cluster id of the batch lay outside
+    the CSR (``finalize`` then raises); ``host``: the four tensors and
+    ``fault`` on the host, valid once the CUDA event ``ready`` has
+    fired (None for both: ``finalize`` fetches the tuple itself)."""
     batch = None
+    fault = None
+    host = None
+    ready = None
+
+
+def _queue_to_host(tensors):
+    """Copies of CUDA ``tensors`` into pinned host memory, queued on the
+    current stream, and an event recorded after them; CPU tensors as
+    they are, with no event."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in tensors)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(tensors[0].device))
+    return host, ready
 
 
 class BucketServer:
@@ -109,8 +130,19 @@ class BucketServer:
         if self.sorted_emb.device.type != self.device.type:
             raise ValueError(f"index is on {self.sorted_emb.device}")
         self.offsets_h, self.doc_ids_h = host_csr(index)
-        if self.offsets_h[-1] > self.sorted_emb.shape[0]:
+        # proven once here, so every bound offsets[c], offsets[c + 1] of a
+        # cluster 0 <= c < C satisfies 0 <= s <= e <= N, the kernel's
+        # contract; each batch then checks only its ids, on the device
+        off = self.offsets_h
+        if off.ndim != 1 or off.shape[0] < 2:
+            raise ValueError("offsets must hold C + 1 >= 2 entries")
+        if off[0] < 0:
+            raise ValueError("offsets must start at >= 0")
+        if (np.diff(off) < 0).any():
+            raise ValueError("offsets must not fall")
+        if off[-1] > self.sorted_emb.shape[0]:
             raise ValueError("offsets run past the corpus rows")
+        self.nclusters = off.shape[0] - 1
         self.offsets_d = torch.from_numpy(
             self.offsets_h.astype(np.int32)).to(self.device)
         self.q_dt = _query_dtype(self.sorted_emb.dtype)
@@ -151,16 +183,26 @@ class BucketServer:
 
     @torch.inference_mode()
     def bucket(self, cidx, q_rep):
-        """Stage 2: the bucket kernel -> (scores, rows), each (G, cap)."""
+        """Stage 2: the bucket kernel -> (scores, rows), each (G, cap),
+        and ``fault``, a 0-dim bool device tensor: true if an id of
+        ``cidx`` lay outside ``[0, C)``.  Such ids are clamped into it
+        before any read, and the CSR was checked at build, so the kernel
+        reads only corpus rows; nothing waits for the device."""
         with span("serve.bucket"):
+            count("serve.cidx_check")
+            cl = cidx.clamp(0, self.nclusters - 1)
+            fault = (cl != cidx).any()
             if self.bucket_kernel == "fused":
-                return bucket_scores_fused(self.sorted_emb, self.offsets_d,
-                                           cidx, q_rep, self.cap, ALIGN,
-                                           device=self.device)
-            ci = cidx.long()
-            return bucket_scores_v3(self.sorted_emb, self.offsets_d[ci],
-                                    self.offsets_d[ci + 1], q_rep, self.cap,
-                                    ALIGN, device=self.device)
+                scores, rows = bucket_scores_fused(
+                    self.sorted_emb, self.offsets_d, cl, q_rep, self.cap,
+                    ALIGN, device=self.device, host_check=False)
+            else:
+                ci = cl.long()
+                scores, rows = bucket_scores_v3(
+                    self.sorted_emb, self.offsets_d[ci],
+                    self.offsets_d[ci + 1], q_rep, self.cap, ALIGN,
+                    device=self.device, host_check=False)
+            return scores, rows, fault
 
     @torch.inference_mode()
     def pool_topk(self, scores, rows, B: int):
@@ -172,12 +214,14 @@ class BucketServer:
 
     def query_device(self, query_ids, query_mask,
                      cidx_override: Optional[torch.Tensor] = None):
-        """Device half: the three stages; results stay on the device (the
-        kernel wrapper's bounds check is the one host sync).  ``cidx_override``
-        (at least B*nb int32 cluster ids, extra rows ignored) replaces
-        the beam's clusters, to drive the bucket stage with occupied
-        clusters when the NCI weights are random.  Returns a
-        :class:`Handle` for :meth:`finalize`."""
+        """Device half: the three stages, queued on the device with no
+        host sync (once a batch shape's beam is captured), so the host
+        can finalize the batch before while they run; results stay on
+        the device.  ``cidx_override`` (at least B*nb int32 cluster ids,
+        extra rows ignored) replaces the beam's clusters, to drive the
+        bucket stage with occupied clusters when the NCI weights are
+        random.  Returns a :class:`Handle` for :meth:`finalize`, which
+        raises if a cluster id lay outside the CSR."""
         B = query_ids.shape[0]
         batch = new_batch()
         with span("serve.query_device", batch=batch):
@@ -186,20 +230,33 @@ class BucketServer:
             if cidx_override is not None:
                 cidx = cidx_override[:B * self.num_beams].to(
                     self.device, torch.int32).contiguous()
-            scores, rows = self.bucket(cidx, q_rep)
+            scores, rows, fault = self.bucket(cidx, q_rep)
             top_scores, top_rows = self.pool_topk(scores, rows, B)
-        handle = Handle((top_scores, top_rows, codes, beam_scores))
-        handle.batch = batch
+            handle = Handle((top_scores, top_rows, codes, beam_scores))
+            handle.batch, handle.fault = batch, fault
+            # queued behind this batch's own work: a fetch made at
+            # finalize would wait behind the next batch's as well
+            handle.host, handle.ready = _queue_to_host((*handle, fault))
         return handle
 
     def finalize(self, handle):
         """Host half: fetch, map CSR rows to doc ids.  Returns (doc
         scores (B, pool), original doc ids (B, pool), beam codes
-        (B, nb, M), beam scores (B, nb), ndoc (B,)) as numpy arrays."""
+        (B, nb, M), beam scores (B, nb), ndoc (B,)) as numpy arrays.
+        Raises ``ValueError`` before mapping if the handle's ``fault``
+        is set (a plain tuple has none)."""
         with span("serve.finalize", batch=getattr(handle, "batch", None)):
             with span("finalize.fetch"):
+                if getattr(handle, "host", None) is not None:
+                    if handle.ready is not None:
+                        handle.ready.synchronize()
+                    *outs, fault = handle.host
+                else:
+                    outs, fault = handle, getattr(handle, "fault", None)
                 top_scores, top_rows, codes, beam_scores = (
-                    t.cpu().numpy() for t in handle)
+                    t.cpu().numpy() for t in outs)
+                if fault is not None and fault.item():
+                    raise ValueError(CIDX_ERROR)
             with span("finalize.map"):
                 B = codes.shape[0]
                 top_ids = np.where(top_rows >= 0,

@@ -17,7 +17,8 @@ profiler range ``mevi.<name>``, so it lies on the trace's clock beside
 the device operations launched inside it.
 
 Counters.  ``count(name, n)`` adds to a named counter whether spans are
-on or off (the bucket kernels' launches, ``bucket.launches.<mode>``);
+on or off (the bucket kernels' launches, ``bucket.launches.<mode>``; the
+server's device-side cluster id checks, ``serve.cidx_check``);
 ``counter(name)`` reads it.
 """
 

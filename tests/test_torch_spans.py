@@ -208,6 +208,7 @@ def test_bucket_server_span_tree(rec, server):
     launches = launch_counts()
     off = _serve(srv, ids)
     assert rec.spans() == []
+    checks = rec.counter("serve.cidx_check")
     rec.enable()
     h = srv.query_device(ids, torch.ones_like(ids))
     assert len(h) == 4 and h.batch is not None
@@ -216,14 +217,17 @@ def test_bucket_server_span_tree(rec, server):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
     assert launch_counts() == launches        # the CPU runs the plain version
+    # the batch's cluster ids are checked on the device, once, with no
+    # host check inside the bucket stage
+    assert rec.counter("serve.cidx_check") == checks + 1
 
     s = rec.spans()
     assert Counter(x.name for x in s) == Counter({
         "serve.query_device": 1, "serve.coarse": 1, "tower": 1, "beam": 1,
         "beam.encode": 1, "beam.step": M + 1, "beam.topk": M,
-        "beam.reorder": M - 1, "serve.bucket": 1, "bucket.bounds_check": 1,
-        "serve.pool": 1, "serve.finalize": 1, "finalize.fetch": 1,
-        "finalize.map": 1})
+        "beam.reorder": M - 1, "serve.bucket": 1, "serve.pool": 1,
+        "serve.finalize": 1, "finalize.fetch": 1, "finalize.map": 1})
+    assert "bucket.bounds_check" not in {x.name for x in s}
     assert {x.batch for x in s} == {h.batch}
     parent = {x.name: s[x.parent].name if x.parent >= 0 else None for x in s}
     assert parent == {
@@ -231,7 +235,6 @@ def test_bucket_server_span_tree(rec, server):
         "tower": "serve.coarse", "beam": "serve.coarse",
         "beam.encode": "beam", "beam.step": "beam", "beam.topk": "beam",
         "beam.reorder": "beam", "serve.bucket": "serve.query_device",
-        "bucket.bounds_check": "serve.bucket",
         "serve.pool": "serve.query_device", "serve.finalize": None,
         "finalize.fetch": "serve.finalize", "finalize.map": "serve.finalize"}
     by_t = {n: [x.t for x in s if x.name == n]
