@@ -37,8 +37,8 @@ Phases:
      (12 + 12 layers), random bf16 weights from the seed, over
      8,841,823 x 768 bf16 rows made on the device; batch 512, 10 beams,
      cap 512, pool 1000, length penalty 0.8; with the beam's own codes
-     and with doc-weighted ``cidx_override``; then the fused-kernel
-     server; one batch's pool recomputed with the plain bucket version;
+     and with doc-weighted ``cidx_override``; one batch's pool
+     recomputed with the plain bucket version;
   2b. the raw-score path on the last override batch:
      ``bucket_scores_dispatch`` (raw kernel) + ``mask_pool_topk``, held
      against the server's pool;
@@ -547,9 +547,9 @@ def pool_with_plain(server, cidx, q_rep, B):
     PyTorch version (same bounds, same query rows)."""
     from mevi_tpu_torch.ops.bucket import bucket_scores_v3_plain
     ci = cidx.long()
-    s, r = bucket_scores_v3_plain(server.sorted_emb, server.offsets_d[ci],
-                                  server.offsets_d[ci + 1], q_rep,
-                                  server.cap)
+    off = server.csr.offsets_d
+    s, r = bucket_scores_v3_plain(server.sorted_emb, off[ci], off[ci + 1],
+                                  q_rep, server.cap)
     return server.pool_topk(s, r, B)
 
 
@@ -584,9 +584,7 @@ def serve_stages(server, ids, mask, cidx_override):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     ts, tr = server.pool_topk(scores, rows, B)
-    handle = Handle((ts, tr, codes, bsc))
-    handle.fault = fault
-    out = server.finalize(handle)
+    out = server.finalize(Handle((ts, tr, codes, bsc), fault))
     t3 = time.perf_counter()
     ms = {"coarse_ms": (t1 - t0) * 1e3, "bucket_ms": (t2 - t1) * 1e3,
           "pool_finalize_ms": (t3 - t2) * 1e3}
@@ -621,14 +619,14 @@ def check_outputs(tag, out, cfg, B):
     return float(valid.mean()), float(ndoc.mean())
 
 
-def run_path(tag, server, batches, cfg, mode):
-    """Warm-up, then timed batches; counts the launches of kernel mode
-    ``mode`` only across this path's own batches."""
+def run_path(tag, server, batches, cfg):
+    """Warm-up, then timed batches; counts the launches of the served
+    kernel (v3) only across this path's own batches."""
     from mevi_tpu_torch.ops.bucket import launch_counts
     for ids, mask, ov in batches[:cfg["warmup"]]:
         server.finalize(server.query_device(ids, mask, ov))
     torch.cuda.synchronize()
-    launches0 = launch_counts()[mode]
+    launches0 = launch_counts()["v3"]
     stage_ms, q_ms, last = [], [], None
     for ids, mask, ov in batches[cfg["warmup"]:]:
         ms, out, extra = serve_stages(server, ids, mask, ov)
@@ -638,7 +636,7 @@ def run_path(tag, server, batches, cfg, mode):
         q_ms.append((time.perf_counter() - t0) * 1e3)
         agree(f"{tag}: stages vs query", out, out2)
         last = (ids, mask, ov, out, extra)
-    launches = launch_counts()[mode] - launches0
+    launches = launch_counts()["v3"] - launches0
     if launches == 0:
         raise AssertionError(f"{tag}: the bucket kernel never launched")
     med = {k: statistics.median(m[k] for m in stage_ms)
@@ -697,8 +695,8 @@ def raw_path(server, cidx, q_rep, pool_ref, B, dev):
     from mevi_tpu_torch.eval import searcher as S
     from mevi_tpu_torch.ops.bucket import align_down
     ci = cidx.long()
-    st = server.offsets_d[ci].contiguous()
-    en = server.offsets_d[ci + 1].contiguous()
+    st = server.csr.offsets_d[ci].contiguous()
+    en = server.csr.offsets_d[ci + 1].contiguous()
     al = align_down(st)
     torch.cuda.synchronize()
     reset_counts()
@@ -1396,11 +1394,8 @@ def synth_phase(cfg, seed, dev, qtower, nci, corpus, secs):
     batches = [(query_batch()[0], mask, None)
                for _ in range(cfg["warmup"] + cfg["timed"])]
     secs["query_tokens_s"] = time.perf_counter() - t0
-    reset_counts()
-    n_plain, _ = run_path("6b_plain_beam", plain, batches, cfg, "v3")
-    n_tab, _ = run_path("6b_pawa_tables", tab_server, batches, cfg, "v3")
-    if read_counts()["fused"]:
-        raise AssertionError("6b: the v3 servers launched the fused mode")
+    n_plain, _ = run_path("6b_plain_beam", plain, batches, cfg)
+    n_tab, _ = run_path("6b_pawa_tables", tab_server, batches, cfg)
     # the two servers in turns on each timed batch (plain, tables,
     # tables, plain): the coarse stage drifts between runs
     turns = {"plain": [], "tables": []}
@@ -1785,8 +1780,7 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
             nci16 = frozen_eval(copy.deepcopy(model).to(torch.bfloat16))
             server = BucketServer(qtower, nci16, index, **kw)
             reset_counts()
-            n, _ = run_path(f"7_{name}_serve", server, batches, cfg,
-                            "v3")
+            n, _ = run_path(f"7_{name}_serve", server, batches, cfg)
             if name == "trained":
                 n_trained = n
                 if nci_out:
@@ -3680,7 +3674,7 @@ def plain_v3():
     from mevi_tpu_torch.eval import searcher
     from mevi_tpu_torch.ops.bucket import bucket_scores_v3_plain
 
-    def plain(semb, s, e, q, cap, align, device=None):
+    def plain(semb, s, e, q, cap, align, device=None, host_check=True):
         with torch.autocast(semb.device.type, enabled=False):
             return bucket_scores_v3_plain(semb, s, e, q, cap, align)
     with mock.patch.object(searcher, "bucket_scores_v3", plain):
@@ -4251,6 +4245,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     # max_cluster_docs, 4096), the cap of every evaluation path (4, 8e,
     # 12a, 12b); serving runs cfg["cap"] (512)
     cap_eval = InferConfig().max_cluster_docs
+    reset_counts()
     p1 = check_kernel("bf16", semb, off_d, cidx, q, cfg["cap"], dev,
                       cfg["kernel_reps"])
     p1["cap_eval"] = check_kernel("bf16", semb, off_d, cidx, q, cap_eval,
@@ -4272,6 +4267,10 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
                                       modes=("v3", "fused"))
     del semb32
     torch.cuda.empty_cache()
+    # fused serves no path: its launches are phase 1's checked calls
+    n_fused = read_counts()["fused"]
+    if n_fused == 0:
+        raise AssertionError("1: the fused mode never launched")
     # the v2 kernel's path: the A/B entry point, over the int8 corpus
     reset_counts()
     prof = profile_bucket.profile(semb_i8, off_d, cidx, q8, cfg["cap"],
@@ -4315,12 +4314,8 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
 
     own = batches(False)
     over = batches(True)
-    # main path: count from here, drive it, read the counts
-    reset_counts()
-    n_own, _ = run_path("2_own_codes", server, own, cfg, "v3")
-    n_over, last = run_path("2_cidx_override", server, over, cfg, "v3")
-    if read_counts()["fused"]:
-        raise AssertionError("v3 server launched the fused mode")
+    n_own, _ = run_path("2_own_codes", server, own, cfg)
+    n_over, last = run_path("2_cidx_override", server, over, cfg)
     main_launches = n_own + n_over
     # the plain bucket version on the last batch
     ids, m, ov, out, (cidx_l, q_rep, ts, tr) = last
@@ -4330,15 +4325,6 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     profile_path(server, over[-2:])
     emit(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
 
-    # fused mode of the same kernel, its own path and count
-    fused = BucketServer(qtower, nci, index, bucket_kernel="fused", **kw)
-    reset_counts()
-    n_fused, flast = run_path("2_fused", fused, over[:cfg["warmup"] + 2],
-                              cfg, "fused")
-    agree("2_fused vs v3", flast[3],
-          server.finalize(server.query_device(*flast[:3])))
-    del fused
-
     # ---- phase 2b: the raw-score path on the last override batch --------
     n_raw = raw_path(server, cidx_l, q_rep, (ts, tr), Bq, dev)
 
@@ -4346,7 +4332,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
     index8 = index._replace(sorted_emb=semb_i8)
     server8 = BucketServer(qtower, nci, index8, inv_scale=1.0 / scale, **kw)
     reset_counts()
-    n_int8, last8 = run_path("3_int8", server8, over, cfg, "v3")
+    n_int8, last8 = run_path("3_int8", server8, over, cfg)
     ids, m, ov, out8, (cidx8, q8s, ts8, tr8) = last8
     err8, n_sep8 = compare_pools("3_plain", (ts8, tr8),
                                  pool_with_plain(server8, cidx8, q8s, Bq))

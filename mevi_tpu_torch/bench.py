@@ -9,7 +9,7 @@ corpus of :mod:`mevi_tpu_torch.data.synth` at MS MARCO scale (8,841,823 x
 
     python -m mevi_tpu_torch.bench [--ndoc N] [--ckpt DIR]
         [--dtype bf16|int8] [--batch B] [--nbatch N] [--cap C]
-        [--bucket_kernel v3|fused] [--device cuda|cpu]
+        [--device cuda|cpu]
 
 Two pipelines:
 
@@ -76,9 +76,9 @@ the JAX line (``BENCH_r05.json`` ``parsed``), measured here on the card:
   (``utils.profiling.traced_stage_seconds``: CUDA kernels of a
   ``torch.profiler`` trace, a call) and their share of the H100's bf16
   dense peak from ``flops_of``;
-* ``bucket_launches`` (the port's addition): launches of each bucket
-  kernel wrapper in this run after the kernel check (whose one launch
-  of the served kernel is a comparison, not the served path).
+* ``bucket_launches`` (the port's addition): launches of the served
+  bucket kernel wrapper (v3) in this run after the kernel check (whose
+  one launch is a comparison, not the served path).
 
 Not carried over from the JAX script: its corpus-size ladder, backend
 probe and result sidecars.  A run that fails exits non-zero and prints
@@ -159,8 +159,7 @@ def hit_metrics(found):
 
 
 def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
-        nbatch=None, cap=None, bucket_kernel="v3", codebooks=None,
-        keep=None):
+        nbatch=None, cap=None, codebooks=None, keep=None):
     """One benchmark run; fills ``extras`` with the line's keys and
     returns (queries/s, baseline queries/s).
 
@@ -294,7 +293,7 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
     log(f"params ready: {time.time() - t0:.1f}s")
     server = BucketServer(qtower, nci, index, num_beams=NBEAM, cap=CAP,
                           pool=POOL, inv_scale=1.0 / q_scale if q_scale
-                          else 1.0, bucket_kernel=bucket_kernel, device=dev)
+                          else 1.0, device=dev)
 
     # ---- the served kernel against its plain version -----------------------
     if on_card:
@@ -304,7 +303,7 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
         q_s = torch.from_numpy(host.normal(size=(g, D)).astype(
             np.float32)).to(dev).to(server.q_dt)
         k_s, k_r, _ = server.bucket(cidx_s, q_s)
-        o_s, o_r = Bk.bucket_scores_fused_plain(semb, server.offsets_d,
+        o_s, o_r = Bk.bucket_scores_fused_plain(semb, server.csr.offsets_d,
                                                 cidx_s, q_s, CAP)
         if not torch.equal(k_r, o_r):
             raise AssertionError("bucket kernel rows differ from the plain "
@@ -537,8 +536,7 @@ def run(NDOC, extras, device="cuda", ckpt=None, dtype="bf16", batch=None,
     extras["stages"] = stage
     log(f"stages: {stage}")
     launches = Bk.launch_counts()
-    extras["bucket_launches"] = {k: launches[k] - launches0[k]
-                                 for k in ("v3", "fused")}
+    extras["bucket_launches"] = {"v3": launches["v3"] - launches0["v3"]}
     if keep is not None:
         keep.update(server=server, batches=batches)
     return qps, baseline_qps
@@ -561,15 +559,13 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--nbatch", type=int, default=None)
     ap.add_argument("--cap", type=int, default=None)
-    ap.add_argument("--bucket_kernel", choices=["v3", "fused"],
-                    default="v3")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     extras = {}
     qps, baseline_qps = run(args.ndoc, extras, device=args.device,
                             ckpt=args.ckpt, dtype=args.dtype,
                             batch=args.batch, nbatch=args.nbatch,
-                            cap=args.cap, bucket_kernel=args.bucket_kernel)
+                            cap=args.cap)
     line = result_line(qps, baseline_qps, extras)
     print(json.dumps(line), flush=True)
     return line

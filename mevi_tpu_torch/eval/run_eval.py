@@ -30,7 +30,6 @@ from ..data import io
 from ..decode.beam import nci_beam_search_incremental
 from ..index.csr import pack_codes
 from ..models.nci import NCIT5
-from ..ops.mips import mips_topk
 from .metrics import metrics_from_rank_matrix, ranks_of_gts
 from .searcher import FineIndex, FineReranker, coarse_ranks, host_csr
 from .streaming import HostStreamFineReranker, streaming_mips_topk
@@ -103,13 +102,13 @@ class Evaluator:
             self._tables = model.head_level_tables()
         self._rerank = None
         if fine_index is not None and host_stream:
-            offsets_h, doc_ids_h = host_csr(fine_index)
+            offsets, doc_ids = host_csr(fine_index)
             # a bf16 corpus takes bf16 queries, as FineReranker casts them
             semb = fine_index.sorted_emb
             q_dt = (torch.bfloat16 if isinstance(semb, torch.Tensor)
                     and semb.dtype == torch.bfloat16 else None)
             self._rerank = HostStreamFineReranker(
-                semb, offsets_h, doc_ids_h, fine_index.kary,
+                semb, offsets, doc_ids, fine_index.kary,
                 cfg.max_cluster_docs, max(cfg.recall_num), query_dtype=q_dt,
                 device=self.device)
         elif fine_index is not None:
@@ -148,22 +147,17 @@ class Evaluator:
     def _full_scan(self, qemb):
         """eval_all_documents: exact MIPS over the whole corpus
         (``main_models.py:3818-3876``) in CSR row order, rows mapped to
-        doc ids on the host.  The query keeps the reranker's float type
-        (an int8 corpus is upcast, never the query cast to int8)."""
-        n_real = len(self._rerank.doc_ids_h)
-        k = max(self.cfg.recall_num)
+        doc ids by the reranker's ``HostCSR``; on the card through
+        :meth:`FineReranker.scan`."""
+        csr, k = self._rerank.csr, max(self.cfg.recall_num)
+        n_real = len(csr.doc_ids_h)
         if self.host_stream:
             s, rows = streaming_mips_topk(
                 qemb, self.fine_index.sorted_emb[:n_real], k=k,
                 device=self.device)
+            ids = csr.ids(rows)
         else:
-            s, rows = mips_topk(
-                torch.as_tensor(qemb).to(self.device, self._rerank.q_dt),
-                self.fine_index.sorted_emb[:n_real], k=k)
-            s, rows = s.cpu().numpy(), rows.cpu().numpy()
-        ids = np.where(rows >= 0,
-                       self._rerank.doc_ids_h[np.clip(rows, 0, None)],
-                       -1).astype(np.int32)
+            s, ids = self._rerank.scan(qemb, k)
         return s, ids, np.full(qemb.shape[0], n_real, np.int64)
 
     @staticmethod
@@ -238,10 +232,7 @@ class Evaluator:
         if cfg.recall_level in ("coarse", "both") and \
                 self.fine_index is not None:
             # invert the answer arrays once to query -> answering clusters
-            host_off, host_ids = host_csr(self.fine_index)
-            cluster_of_doc = np.zeros(len(host_ids), np.int64)
-            cluster_of_doc[host_ids] = np.repeat(
-                np.arange(len(host_off) - 1), np.diff(host_off))
+            cluster_of_doc = self._rerank.csr.doc_clusters()
             nq_total = int(answer_index.array.max()) + 1 \
                 if len(answer_index.array) else 1
             nq_total = max(nq_total, int(max(query_indices)) + 1)

@@ -21,8 +21,7 @@ import torch
 
 from .. import resolve_device
 from ..index.csr import build_csr, pack_codes
-from ..ops.bucket import (ALIGN, bucket_scores, bucket_scores_fused,
-                          bucket_scores_v3)
+from ..ops.bucket import ALIGN, CIDX_ERROR, bucket_scores, bucket_scores_v3
 from ..ops.mips import merge_shards, mips_topk
 from ..ops.topk import NEG_INF, topk_stable
 from ..parallel.mesh import CORPUS_AXIS, Mesh
@@ -47,6 +46,62 @@ def host_csr(index: FineIndex) -> Tuple[np.ndarray, np.ndarray]:
                 np.asarray(index.host_doc_ids))
     return (index.offsets.cpu().numpy().astype(np.int64),
             index.doc_ids.cpu().numpy())
+
+
+class HostCSR:
+    """The fine stage's CSR on the host, proven once: the one owner of
+    its layout for ``serve.BucketServer``, :class:`FineReranker` and
+    ``streaming.HostStreamFineReranker``.
+
+    ``offsets_h`` (C + 1,) int64 and ``doc_ids_h`` (N,): the host copies;
+    ``offsets_d``: the offsets as int32 on ``device``; ``nclusters``: C.
+    The build refuses offsets that do not rise from >= 0 to <= ``nrows``
+    (the corpus rows), so the bucket ``[offsets[c], offsets[c + 1])`` of
+    every cluster ``0 <= c < C`` lies inside the corpus: the bucket
+    kernels' contract, which the owners' callers then launch with
+    ``host_check=False``."""
+
+    def __init__(self, offsets, doc_ids, nrows: int, device):
+        off = np.asarray(offsets, np.int64)
+        if off.ndim != 1 or off.shape[0] < 2:
+            raise ValueError("offsets must hold C + 1 >= 2 entries")
+        if off[0] < 0:
+            raise ValueError("offsets must start at >= 0")
+        if (np.diff(off) < 0).any():
+            raise ValueError("offsets must not fall")
+        if off[-1] > nrows:
+            raise ValueError("offsets run past the corpus rows")
+        self.offsets_h, self.doc_ids_h = off, np.asarray(doc_ids)
+        self.nclusters = off.shape[0] - 1
+        self.offsets_d = torch.from_numpy(off.astype(np.int32)).to(device)
+
+    @classmethod
+    def of(cls, index: FineIndex, device) -> "HostCSR":
+        """From :func:`host_csr`'s copies of the index's CSR."""
+        return cls(*host_csr(index), index.sorted_emb.shape[0], device)
+
+    def bounds(self, cidx) -> Tuple[np.ndarray, np.ndarray]:
+        """(starts, ends) int64 of host cluster ids ``cidx`` (any shape);
+        ``ends - starts`` are the bucket sizes.  Raises
+        ``ValueError(CIDX_ERROR)`` unless every id lies in ``[0, C)``."""
+        ci = np.asarray(cidx, np.int64)
+        if ci.size and (ci.min() < 0 or ci.max() >= self.nclusters):
+            raise ValueError(CIDX_ERROR)
+        return self.offsets_h[ci], self.offsets_h[ci + 1]
+
+    def doc_clusters(self) -> np.ndarray:
+        """(N,) int64: the cluster of each original doc id."""
+        out = np.zeros(len(self.doc_ids_h), np.int64)
+        out[self.doc_ids_h] = np.repeat(np.arange(self.nclusters),
+                                        np.diff(self.offsets_h))
+        return out
+
+    def ids(self, rows) -> np.ndarray:
+        """Original doc ids (int32) of host CSR ``rows``, -1 where a row
+        is < 0."""
+        rows = np.asarray(rows)
+        return np.where(rows >= 0, self.doc_ids_h[np.clip(rows, 0, None)],
+                        -1).astype(np.int32)
 
 
 def build_fine_index(codes: np.ndarray, emb, kary: int,
@@ -215,32 +270,27 @@ def sharded_fine_rerank(query_emb, beam_codes, index_shard: FineIndex,
 
 
 class FineReranker:
-    """Reusable fine re-rank through the bucket kernel; maps CSR rows
-    back to original doc ids on the host.
+    """Reusable fine re-rank through the v3 bucket kernel; maps CSR rows
+    back to original doc ids on the host (:class:`HostCSR`, which proves
+    the CSR at build, so the kernel launches without a host check).
 
     ``overflow='scan'`` (default): a query whose clusters exceed ``cap``
-    members falls back to an exact full-corpus scan (``mips_topk``);
+    members falls back to an exact full-corpus scan (:meth:`scan`);
     ``'truncate'`` keeps the capped result.  ``align``: the bucket
     window's start alignment, 8 (the JAX package's on-device contract,
-    the default) or 1 (its ``_beam_scores`` window).  ``bucket_kernel``:
-    ``"v3"`` (bounds gathered before the kernel) or ``"fused"`` (looked
-    up inside it)."""
+    the default) or 1 (its ``_beam_scores`` window)."""
 
     def __init__(self, index: FineIndex, cap: int, pool: int,
                  overflow: str = "scan", rank: str = "score",
-                 bucket_kernel: str = "v3", align: int = ALIGN,
-                 device="cuda"):
+                 align: int = ALIGN, device="cuda"):
         if overflow not in ("scan", "truncate"):
             raise ValueError(overflow)
         if rank not in ("score", "beam_major"):
             raise ValueError(rank)
-        if bucket_kernel not in ("v3", "fused"):
-            raise ValueError(bucket_kernel)
         self.device = resolve_device(device)
         self.index = index
         self.cap, self.pool, self.align = cap, pool, align
         self.overflow, self.rank = overflow, rank
-        self.bucket_kernel = bucket_kernel
         self.kary = index.kary
         semb = index.sorted_emb
         if semb.device.type != self.device.type:
@@ -252,63 +302,48 @@ class FineReranker:
                          else torch.bfloat16)
         else:
             self.q_dt = semb.dtype
-        self.offsets_h, self.doc_ids_h = host_csr(index)
-        if self.offsets_h[-1] > semb.shape[0]:
-            raise ValueError("offsets run past the corpus rows")
-        self.offsets_d = torch.from_numpy(
-            self.offsets_h.astype(np.int32)).to(self.device)
+        self.csr = HostCSR.of(index, self.device)
 
-    def _scan_overflow(self, query_emb, scores, ids, over_mask):
-        """Replace overflowing queries' results with an exact scan."""
+    @torch.inference_mode()
+    def scan(self, query_emb, k: int):
+        """Exact MIPS top-``k`` over every corpus row, the query in the
+        reranker's float type (an int8 corpus is upcast, never the query
+        cast to int8): (scores (B, k), original doc ids (B, k)) as numpy
+        arrays."""
         q = torch.as_tensor(query_emb).to(self.device, self.q_dt)
-        k = scores.shape[-1]
-        s_all, rows = mips_topk(q, self.index.sorted_emb, k=k)
-        rows_h = rows.cpu().numpy()
-        n_real = len(self.doc_ids_h)
-        ids_all = np.where((rows_h >= 0) & (rows_h < n_real),
-                           self.doc_ids_h[np.clip(rows_h, 0, n_real - 1)], -1)
-        scores = np.where(over_mask[:, None], s_all.cpu().numpy()[:, :k],
-                          scores)
-        ids = np.where(over_mask[:, None], ids_all[:, :k], ids)
-        return scores, ids
+        s, rows = mips_topk(
+            q, self.index.sorted_emb[:len(self.csr.doc_ids_h)], k=k)
+        return s.cpu().numpy(), self.csr.ids(rows.cpu().numpy())
 
     @torch.inference_mode()
     def __call__(self, query_emb, beam_codes):
         """query_emb (B, d); beam_codes (B, nb, M) -> (scores (B, pool),
-        original doc ids (B, pool), ndoc (B,)) as numpy arrays."""
+        original doc ids (B, pool), ndoc (B,)) as numpy arrays.  Raises
+        ``ValueError(CIDX_ERROR)`` if a code packs to a cluster outside
+        the CSR."""
         codes_h = np.asarray(torch.as_tensor(beam_codes).cpu())
         B, nb, M = codes_h.shape
-        ci_h = pack_codes(codes_h.reshape(-1, M), self.kary).astype(np.int64)
-        sizes_h = (self.offsets_h[ci_h + 1]
-                   - self.offsets_h[ci_h]).reshape(B, nb)
-        over = ((sizes_h > self.cap).any(axis=1)
-                if self.overflow == "scan" else np.zeros(B, bool))
+        # the cluster ids are on the host already: checked and bounded
+        # for free
+        s, e = self.csr.bounds(pack_codes(codes_h.reshape(-1, M), self.kary))
+        sizes_h = (e - s).reshape(B, nb)
         q = torch.as_tensor(query_emb).to(self.device, self.q_dt)
         q_rep = q.repeat_interleave(nb, 0).contiguous()
-        semb = self.index.sorted_emb
-        if self.bucket_kernel == "fused":
-            cidx = torch.from_numpy(ci_h.astype(np.int32)).to(self.device)
-            scores, rows = bucket_scores_fused(
-                semb, self.offsets_d, cidx, q_rep, self.cap, self.align,
-                device=self.device)
-        else:
-            # the cluster ids are on the host already: bounds for free
-            s = torch.from_numpy(self.offsets_h[ci_h].astype(np.int32))
-            e = torch.from_numpy(self.offsets_h[ci_h + 1].astype(np.int32))
-            scores, rows = bucket_scores_v3(
-                semb, s.to(self.device), e.to(self.device), q_rep, self.cap,
-                self.align, device=self.device)
+        scores, rows = bucket_scores_v3(
+            self.index.sorted_emb,
+            torch.from_numpy(s.astype(np.int32)).to(self.device),
+            torch.from_numpy(e.astype(np.int32)).to(self.device), q_rep,
+            self.cap, self.align, device=self.device, host_check=False)
         top_scores, top_rows = merge_pool(
             scores.reshape(B, -1), rows.reshape(B, -1), nb, self.cap,
             self.pool, self.rank)
-        top_rows_h = top_rows.cpu().numpy()
-        top_ids = np.where(top_rows_h >= 0,
-                           self.doc_ids_h[np.clip(top_rows_h, 0, None)],
-                           -1).astype(np.int32)
         top_scores = top_scores.cpu().numpy()
-        if over.any():
-            top_scores, top_ids = self._scan_overflow(
-                query_emb, top_scores, top_ids, over)
+        top_ids = self.csr.ids(top_rows.cpu().numpy())
+        over = (sizes_h > self.cap).any(axis=1)
+        if self.overflow == "scan" and over.any():
+            s_all, i_all = self.scan(query_emb, top_scores.shape[-1])
+            top_scores = np.where(over[:, None], s_all, top_scores)
+            top_ids = np.where(over[:, None], i_all, top_ids)
         return top_scores, top_ids, sizes_h.sum(-1)
 
 

@@ -32,6 +32,7 @@ import torch
 from .. import resolve_device
 from ..index.csr import pack_codes
 from ..ops.topk import NEG_INF, merge_topk, topk_stable
+from .searcher import HostCSR
 
 # numpy has no bfloat16: such rows move as their 16-bit patterns
 _BITS = {torch.bfloat16: torch.int16}
@@ -180,7 +181,8 @@ class HostStreamFineReranker:
     the previous sub-batch is scored, and scored in float32 on the card
     (the reference's per-cluster memmap -> device gather,
     ``main_models.py:3915-3991``, batched).  Clusters past ``cap`` are
-    cut to their first ``cap`` rows.  Returns original doc ids.
+    cut to their first ``cap`` rows.  Returns original doc ids.  The CSR
+    is ``csr``, a :class:`..searcher.HostCSR`, proven at build.
 
     Host memory: two panels of ``sub_batch * nb * cap * d * itemsize``
     bytes (4 GB each for bf16 at cap 4096, 10 beams, d 768 and the
@@ -191,14 +193,10 @@ class HostStreamFineReranker:
                  device="cuda"):
         self.device = resolve_device(device)
         self.emb, self.emb_dtype = host_rows(sorted_emb_host)
-        self.offsets = np.asarray(offsets, np.int64)
-        self.doc_ids = np.asarray(doc_ids)
+        self.csr = HostCSR(offsets, doc_ids, self.emb.shape[0], self.device)
         self.kary, self.cap, self.pool = kary, cap, pool
         self.sub_batch = sub_batch
         self.q_dt = query_dtype
-        # FineReranker-compatible attribute names (Evaluator contract)
-        self.offsets_h = self.offsets
-        self.doc_ids_h = self.doc_ids
         self._stages = None
 
     def _staging(self, shape):
@@ -216,18 +214,14 @@ class HostStreamFineReranker:
         if self.q_dt is not None:
             q_all = q_all.to(self.q_dt)
         codes = np.asarray(torch.as_tensor(beam_codes).cpu())
-        B, nb, M = codes.shape
+        B, nb = codes.shape[:2]
         cap = self.cap
-        ci = pack_codes(codes.reshape(-1, M), self.kary).astype(
-            np.int64).reshape(B, nb)
-        starts = self.offsets[ci]
-        sizes = self.offsets[ci + 1] - starts
-        ndoc = sizes.sum(-1)
+        starts, ends = self.csr.bounds(pack_codes(codes, self.kary))
+        sizes = ends - starts
         k = min(self.pool, nb * cap)
         sub = min(self.sub_batch, B)
         panels, rows = self._staging((sub, nb * cap, self.emb.shape[1]))
         firsts = list(range(0, B, sub))
-        n_rows = len(self.doc_ids)
 
         def put(j):
             s0 = firsts[j]
@@ -238,7 +232,7 @@ class HostStreamFineReranker:
             for bi in range(b):
                 for jj in range(nb):
                     st = int(starts[s0 + bi, jj])
-                    n = max(0, min(int(sizes[s0 + bi, jj]), cap, n_rows - st))
+                    n = min(int(sizes[s0 + bi, jj]), cap)
                     if n:
                         panel[bi, jj * cap:jj * cap + n] = self.emb[st:st + n]
                         rw[bi, jj * cap:jj * cap + n] = np.arange(st, st + n)
@@ -257,8 +251,5 @@ class HostStreamFineReranker:
             rows.done(j % 2)
             cur = nxt
         out_s = torch.cat([o[0] for o in outs]).cpu().numpy()
-        top_rows = torch.cat([o[1] for o in outs]).cpu().numpy()
-        out_i = np.where(top_rows >= 0,
-                         self.doc_ids[np.clip(top_rows, 0, None)],
-                         -1).astype(np.int32)
-        return out_s, out_i, ndoc
+        out_i = self.csr.ids(torch.cat([o[1] for o in outs]).cpu().numpy())
+        return out_s, out_i, sizes.sum(-1)

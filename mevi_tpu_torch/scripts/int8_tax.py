@@ -11,7 +11,7 @@ returned, and one artifact with both recall sets and their deltas.
 bf16 corpus; the JAX script halved it for the v5e).  With ``--ckpt`` (a
 ``scripts.quality_full`` bundle) the trained pipeline's ``trained_*``
 recalls are compared too.  Flags it does not know (``--batch``,
-``--nbatch``, ``--cap``, ``--bucket_kernel``) pass to both runs.  The
+``--nbatch``, ``--cap``) pass to both runs.  The
 random-weight pipeline's RQ fit is cached by the corpus spec
 (``data.synth.fit_rq_codes``), so both runs assign with one fit.  The
 artifact goes to ``--out`` (default ``<tempdir>/int8_tax.json``) and to

@@ -25,13 +25,12 @@ import torch
 from . import resolve_device
 from .decode.beam import nci_beam_search_incremental
 from .decode.beam_graph import BeamGraph
-from .eval.searcher import (FineIndex, _beam_scores, host_csr, merge_pool,
+from .eval.searcher import (FineIndex, HostCSR, _beam_scores, merge_pool,
                             shard_pool)
 from .index.csr import pack_codes
 from .models.nci import NCIT5
 from .models.t5 import T5Model
-from .ops.bucket import (ALIGN, CIDX_ERROR, bucket_scores_fused,
-                         bucket_scores_v3)
+from .ops.bucket import ALIGN, CIDX_ERROR, bucket_scores_v3
 from .parallel.mesh import DATA_AXIS, Mesh, gather_rows
 from .utils.timers import count, new_batch, span
 
@@ -61,43 +60,40 @@ def serve_batch(qtower: T5Model, nci: NCIT5, query_ids, query_mask,
 
 class Handle(tuple):
     """:meth:`BucketServer.query_device`'s result, unpacked as (top
-    scores, top CSR rows, beam codes, beam scores) on the device;
-    ``batch``: the batch id of its spans (None while spans are off),
-    which :meth:`BucketServer.finalize` gives its own; ``fault``: a 0-dim
-    bool device tensor, true if a cluster id of the batch lay outside
-    the CSR (``finalize`` then raises); ``host``: the four tensors and
-    ``fault`` on the host, valid once the CUDA event ``ready`` has
-    fired (None for both: ``finalize`` fetches the tuple itself)."""
-    batch = None
-    fault = None
-    host = None
-    ready = None
+    scores, top CSR rows, beam codes, beam scores) on the device.
+    ``fault``: a 0-dim bool device tensor, true if a cluster id of the
+    batch lay outside the CSR (:meth:`BucketServer.finalize` then
+    raises); ``batch``: the batch id of its spans (None while spans are
+    off), which ``finalize`` gives its own.  Built, it queues copies of
+    the four tensors and ``fault`` into pinned host memory (``host``)
+    behind the work queued so far, and records the CUDA event ``ready``
+    after them; on the CPU ``host`` holds the tensors themselves and
+    ``ready`` is None."""
 
-
-def _queue_to_host(tensors):
-    """Copies of CUDA ``tensors`` into pinned host memory, queued on the
-    current stream, and an event recorded after them; CPU tensors as
-    they are, with no event."""
-    if tensors[0].device.type != "cuda":
-        return tensors, None
-    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                 .copy_(t, non_blocking=True) for t in tensors)
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(tensors[0].device))
-    return host, ready
+    def __new__(cls, outs, fault, batch=None):
+        self = super().__new__(cls, outs)
+        self.fault, self.batch = fault, batch
+        self.host, self.ready = (*outs, fault), None
+        if fault.device.type == "cuda":
+            self.host = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in self.host)
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(fault.device))
+        return self
 
 
 class BucketServer:
     """Three-stage server: (1) query tower + NCI beam + cluster ids,
-    (2) the bucket kernel, (3) per-query pool top-k; ``finalize`` maps
-    CSR rows to original doc ids on the host.
+    (2) the v3 bucket kernel, (3) per-query pool top-k; ``finalize``
+    maps CSR rows to original doc ids on the host.
 
     ``inv_scale``: dequantization factor of an int8 corpus, folded into
     the query rows so scores stay calibrated.  ``rank_mode``: "score" or
-    "beam_major" (see ``merge_pool``).  ``bucket_kernel``: "v3" (bounds
-    gathered on the device before the kernel, the default) or "fused"
-    (looked up inside the kernel).  The window is the TPU contract's
-    (``align=8``).
+    "beam_major" (see ``merge_pool``).  The window is the TPU contract's
+    (``align=8``).  ``csr``: the index's ``eval.searcher.HostCSR``,
+    proven at build, so each batch checks only its cluster ids, on the
+    device.
 
     ``pawa_tables`` (off by default, as ``MEVI_PAWA_TABLES`` in the JAX
     server): build ``NCIT5.pawa_prefix_tables`` once, next to the head
@@ -112,39 +108,21 @@ class BucketServer:
     def __init__(self, qtower: T5Model, nci: NCIT5, index: FineIndex,
                  num_beams: int = 10, cap: int = 512, pool: int = 1000,
                  length_penalty: float = 0.8, inv_scale: float = 1.0,
-                 rank_mode: str = "score", bucket_kernel: str = "v3",
-                 pawa_tables: bool = False, device="cuda"):
+                 rank_mode: str = "score", pawa_tables: bool = False,
+                 device="cuda"):
         if rank_mode not in ("score", "beam_major"):
             raise ValueError(rank_mode)
-        if bucket_kernel not in ("v3", "fused"):
-            raise ValueError(bucket_kernel)
         self.device = resolve_device(device)
         self.qtower, self.nci = qtower, nci
         self.num_beams, self.cap, self.pool = num_beams, cap, pool
         self.length_penalty = length_penalty
         self.rank_mode = rank_mode
-        self.bucket_kernel = bucket_kernel
         self.kary = nci.dims.kary
         self.M = nci.dims.code_len
         self.sorted_emb = index.sorted_emb
         if self.sorted_emb.device.type != self.device.type:
             raise ValueError(f"index is on {self.sorted_emb.device}")
-        self.offsets_h, self.doc_ids_h = host_csr(index)
-        # proven once here, so every bound offsets[c], offsets[c + 1] of a
-        # cluster 0 <= c < C satisfies 0 <= s <= e <= N, the kernel's
-        # contract; each batch then checks only its ids, on the device
-        off = self.offsets_h
-        if off.ndim != 1 or off.shape[0] < 2:
-            raise ValueError("offsets must hold C + 1 >= 2 entries")
-        if off[0] < 0:
-            raise ValueError("offsets must start at >= 0")
-        if (np.diff(off) < 0).any():
-            raise ValueError("offsets must not fall")
-        if off[-1] > self.sorted_emb.shape[0]:
-            raise ValueError("offsets run past the corpus rows")
-        self.nclusters = off.shape[0] - 1
-        self.offsets_d = torch.from_numpy(
-            self.offsets_h.astype(np.int32)).to(self.device)
+        self.csr = HostCSR.of(index, self.device)
         self.q_dt = _query_dtype(self.sorted_emb.dtype)
         self.inv_scale = torch.tensor(inv_scale, dtype=self.q_dt,
                                       device=self.device)
@@ -190,18 +168,13 @@ class BucketServer:
         reads only corpus rows; nothing waits for the device."""
         with span("serve.bucket"):
             count("serve.cidx_check")
-            cl = cidx.clamp(0, self.nclusters - 1)
+            cl = cidx.clamp(0, self.csr.nclusters - 1)
             fault = (cl != cidx).any()
-            if self.bucket_kernel == "fused":
-                scores, rows = bucket_scores_fused(
-                    self.sorted_emb, self.offsets_d, cl, q_rep, self.cap,
-                    ALIGN, device=self.device, host_check=False)
-            else:
-                ci = cl.long()
-                scores, rows = bucket_scores_v3(
-                    self.sorted_emb, self.offsets_d[ci],
-                    self.offsets_d[ci + 1], q_rep, self.cap, ALIGN,
-                    device=self.device, host_check=False)
+            ci = cl.long()
+            off = self.csr.offsets_d
+            scores, rows = bucket_scores_v3(
+                self.sorted_emb, off[ci], off[ci + 1], q_rep, self.cap,
+                ALIGN, device=self.device, host_check=False)
             return scores, rows, fault
 
     @torch.inference_mode()
@@ -232,43 +205,31 @@ class BucketServer:
                     self.device, torch.int32).contiguous()
             scores, rows, fault = self.bucket(cidx, q_rep)
             top_scores, top_rows = self.pool_topk(scores, rows, B)
-            handle = Handle((top_scores, top_rows, codes, beam_scores))
-            handle.batch, handle.fault = batch, fault
-            # queued behind this batch's own work: a fetch made at
-            # finalize would wait behind the next batch's as well
-            handle.host, handle.ready = _queue_to_host((*handle, fault))
-        return handle
+            # the host copies are queued behind this batch's own work: a
+            # fetch made at finalize would wait behind the next batch's
+            return Handle((top_scores, top_rows, codes, beam_scores), fault,
+                          batch)
 
-    def finalize(self, handle):
+    def finalize(self, handle: Handle):
         """Host half: fetch, map CSR rows to doc ids.  Returns (doc
         scores (B, pool), original doc ids (B, pool), beam codes
         (B, nb, M), beam scores (B, nb), ndoc (B,)) as numpy arrays.
         Raises ``ValueError`` before mapping if the handle's ``fault``
-        is set (a plain tuple has none)."""
-        with span("serve.finalize", batch=getattr(handle, "batch", None)):
+        is set."""
+        with span("serve.finalize", batch=handle.batch):
             with span("finalize.fetch"):
-                if getattr(handle, "host", None) is not None:
-                    if handle.ready is not None:
-                        handle.ready.synchronize()
-                    *outs, fault = handle.host
-                else:
-                    outs, fault = handle, getattr(handle, "fault", None)
+                if handle.ready is not None:
+                    handle.ready.synchronize()
+                *outs, fault = handle.host
                 top_scores, top_rows, codes, beam_scores = (
-                    t.cpu().numpy() for t in outs)
-                if fault is not None and fault.item():
+                    t.numpy() for t in outs)
+                if fault.item():
                     raise ValueError(CIDX_ERROR)
             with span("finalize.map"):
-                B = codes.shape[0]
-                top_ids = np.where(top_rows >= 0,
-                                   self.doc_ids_h[np.clip(top_rows, 0, None)],
-                                   -1).astype(np.int32)
-                ci = pack_codes(codes.reshape(-1, self.M),
-                                self.kary).astype(np.int64)
-                ndoc = (self.offsets_h[ci + 1] - self.offsets_h[ci]).reshape(
-                    B, self.num_beams).sum(-1)
-                return (top_scores.astype(np.float32), top_ids,
-                        codes.astype(np.int32),
-                        beam_scores.astype(np.float32), ndoc)
+                s, e = self.csr.bounds(pack_codes(codes, self.kary))
+                return (top_scores.astype(np.float32),
+                        self.csr.ids(top_rows), codes.astype(np.int32),
+                        beam_scores.astype(np.float32), (e - s).sum(-1))
 
     def query(self, query_ids, query_mask):
         """Returns (doc scores (B, pool), original doc ids (B, pool),

@@ -128,13 +128,12 @@ def test_fine_rerank(setup, rank):
     assert_pool_equal(ts.numpy(), ti.numpy(), js, ji, 1e-4)
 
 
-@pytest.mark.parametrize("kernel", ["v3", "fused"])
 @pytest.mark.parametrize("overflow,rank", [
     ("scan", "score"), ("truncate", "score"), ("truncate", "beam_major"),
     # beam_major + scan mixes two orderings across queries in the JAX
     # reranker (the scan rows are score-ordered); the port copies it
     ("scan", "beam_major")])
-def test_fine_reranker(setup, kernel, overflow, rank):
+def test_fine_reranker(setup, overflow, rank):
     """cap 16 < the largest buckets, so 'scan' replaces some queries by
     the exact full scan.  The JAX reranker's CPU path scores the
     unaligned window, so the port runs with align=1."""
@@ -144,8 +143,7 @@ def test_fine_reranker(setup, kernel, overflow, rank):
     jr = jsearch.FineReranker(S["jfine"], cap, POOL, overflow=overflow,
                               rank=rank)
     tr = tsearch.FineReranker(S["tfine"], cap, POOL, overflow=overflow,
-                              rank=rank, bucket_kernel=kernel, align=1,
-                              device="cpu")
+                              rank=rank, align=1, device="cpu")
     js, ji, jn = jr(jnp.asarray(qemb), jnp.asarray(codes))
     ts, ti, tn = tr(T(qemb), T(codes))
     np.testing.assert_array_equal(tn, jn)
@@ -156,16 +154,15 @@ def test_fine_reranker(setup, kernel, overflow, rank):
     assert over.any() and not over.all()      # both branches are taken
 
 
-@pytest.mark.parametrize("kernel", ["v3", "fused"])
 @pytest.mark.parametrize("rank", ["score", "beam_major"])
-def test_bucket_server_matches_pallas_server(setup, rank, kernel):
+def test_bucket_server_matches_pallas_server(setup, rank):
     S = setup
     js = jserve.PallasServer(S["jq"], S["jnci"], S["q_params"],
                              S["nci_params"], S["jfine"], num_beams=NB,
                              cap=CAP, pool=POOL, rank_mode=rank)
     ts = tserve.BucketServer(S["tq"], S["tnci"], S["tfine"], num_beams=NB,
                              cap=CAP, pool=POOL, rank_mode=rank,
-                             bucket_kernel=kernel, device="cpu")
+                             device="cpu")
     j = js.query(jnp.asarray(S["ids"]), jnp.asarray(S["mask"]))
     t = ts.query(T(S["ids"]), T(S["mask"]))
     np.testing.assert_array_equal(t[2], j[2])

@@ -1,12 +1,16 @@
 """``BucketServer``'s device half queues a batch without waiting for the
-card: the CSR is checked once at build, each batch's cluster ids on the
-device, and a fault is raised at ``finalize``.
+card: the CSR is proven once at build (``eval.searcher.HostCSR``), each
+batch's cluster ids are checked on the device, and a fault is raised at
+``finalize``.
 
-On the CPU: the build refuses each bad CSR; out-of-range override ids
-never reach the bucket wrappers, ``query_device`` returns and
-``finalize`` raises, after which the server serves as a fresh one does;
-a good batch equals, bit for bit, what the checked public wrappers give;
-``serve.cidx_check`` counts one a batch.  On the card (``cuda``, skips
+On the CPU, over float32 and bfloat16 corpora: the build of each owner
+of a ``HostCSR`` (``BucketServer``, ``FineReranker``) refuses each bad
+CSR; out-of-range override ids never reach the bucket wrapper,
+``query_device`` returns and ``finalize`` raises, after which the server
+serves as a fresh one does; a good batch equals, bit for bit, what each
+checked public wrapper (v3, fused) gives; ``serve.cidx_check`` counts
+one a batch; ``FineReranker`` refuses host cluster ids outside the CSR
+before any launch.  On the card (``cuda``, skips
 without one): after one warm-up batch, which captures the beam's graph,
 ``query_device`` runs under ``torch.cuda.set_sync_debug_mode("error")``,
 and two batches in flight equal the same batches served one at a time.
@@ -18,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import mevi_tpu_torch.eval.searcher as searcher
 import mevi_tpu_torch.serve as serve
-from mevi_tpu_torch.eval.searcher import build_fine_index, merge_pool
+from mevi_tpu_torch.eval.searcher import (FineReranker, build_fine_index,
+                                          merge_pool)
 from mevi_tpu_torch.models.nci import NCIDims, NCIT5
 from mevi_tpu_torch.models.t5 import T5Dims, T5Model
 from mevi_tpu_torch.ops.bucket import (ALIGN, CIDX_ERROR,
@@ -29,10 +35,10 @@ from mevi_tpu_torch.utils import timers
 
 KARY, M, NB, CAP, POOL = 4, 3, 3, 16, 10
 NDOC, D, B, L = 512, 16, 5, 6
-KERNELS = ["v3", "fused"]
+DTYPES = [torch.float32, torch.bfloat16]
 
 
-def _server(kernel, device="cpu", dtype=torch.float32, index=None):
+def _server(device="cpu", dtype=torch.float32, index=None):
     t5 = T5Dims(vocab_size=64, d_model=D, d_kv=4, d_ff=32, num_heads=4,
                 num_layers=1, num_decoder_layers=1)
     nci = NCIT5(NCIDims(t5=t5, kary=KARY, max_output_length=M + 2,
@@ -47,7 +53,7 @@ def _server(kernel, device="cpu", dtype=torch.float32, index=None):
     if index is None:
         index = _index(device, dtype)
     return BucketServer(tower, nci, index, num_beams=NB, cap=CAP, pool=POOL,
-                        bucket_kernel=kernel, device=device)
+                        device=device)
 
 
 def _index(device="cpu", dtype=torch.float32):
@@ -97,44 +103,45 @@ def _bad_csr(off, kind):
     return off
 
 
+OWNERS = {"BucketServer": lambda index: _server(index=index),
+          "FineReranker": lambda index: FineReranker(index, CAP, POOL,
+                                                     device="cpu")}
+
+
+@pytest.mark.parametrize("owner", sorted(OWNERS))
 @pytest.mark.parametrize("kind,message", [
     ("falls", "must not fall"), ("starts_below_0", "start at >= 0"),
     ("runs_past_N", "run past the corpus rows"),
     ("one_entry", "C \\+ 1 >= 2 entries")])
-def test_build_refuses_a_bad_csr(kind, message):
+def test_build_refuses_a_bad_csr(kind, message, owner):
     index = _index()
     off = _bad_csr(np.asarray(index.host_offsets, np.int64), kind)
     bad = index._replace(offsets=torch.from_numpy(off.astype(np.int32)),
                          host_offsets=off)
     with pytest.raises(ValueError, match=message):
-        _server("v3", index=bad)
+        OWNERS[owner](bad)
 
 
-def _record_wrappers(monkeypatch):
-    """What reaches the bucket wrappers: (starts, ends) or (cidx,)."""
+def _record_wrapper(monkeypatch, module):
+    """What reaches ``module``'s bucket wrapper: (starts, ends) a call."""
     seen = []
-    real_v3, real_fused = serve.bucket_scores_v3, serve.bucket_scores_fused
+    real = module.bucket_scores_v3
 
     def v3(semb, starts, ends, *a, **k):
         seen.append((starts.clone(), ends.clone()))
-        return real_v3(semb, starts, ends, *a, **k)
-
-    def fused(semb, offsets, cidx, *a, **k):
-        seen.append((cidx.clone(),))
-        return real_fused(semb, offsets, cidx, *a, **k)
-    monkeypatch.setattr(serve, "bucket_scores_v3", v3)
-    monkeypatch.setattr(serve, "bucket_scores_fused", fused)
+        return real(semb, starts, ends, *a, **k)
+    monkeypatch.setattr(module, "bucket_scores_v3", v3)
     return seen
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("times_c,plus", [(0, -2), (0, -1), (1, 0), (1, 7)],
                          ids=["-2", "-1", "C", "C+7"])
-def test_out_of_range_ids_fault_at_finalize(monkeypatch, kernel, times_c,
+def test_out_of_range_ids_fault_at_finalize(monkeypatch, dtype, times_c,
                                             plus):
-    srv = _server(kernel)
-    C = srv.nclusters
-    seen = _record_wrappers(monkeypatch)
+    srv = _server(dtype=dtype)
+    C = srv.csr.nclusters
+    seen = _record_wrapper(monkeypatch, serve)
     ov = _override(1)
     ov[4] = times_c * C + plus
     h = srv.query_device(*_batch(1), cidx_override=ov)
@@ -142,22 +149,19 @@ def test_out_of_range_ids_fault_at_finalize(monkeypatch, kernel, times_c,
     with pytest.raises(ValueError, match=re.escape(CIDX_ERROR)):
         srv.finalize(h)
     # the kernel's inputs lay inside the CSR: no row outside was read
-    (args,) = seen
-    if kernel == "fused":
-        assert int(args[0].min()) >= 0 and int(args[0].max()) < C
-    else:
-        starts, ends = args
-        assert int(starts.min()) >= 0 and int(ends.max()) <= NDOC
-        assert bool((starts <= ends).all())
+    ((starts, ends),) = seen
+    assert int(starts.min()) >= 0 and int(ends.max()) <= NDOC
+    assert bool((starts <= ends).all())
     # the next good batch serves as a fresh server does
     good = _override(2)
-    _assert_same(_serve(srv, 2, good), _serve(_server(kernel), 2, good))
+    _assert_same(_serve(srv, 2, good),
+                 _serve(_server(dtype=dtype), 2, good))
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("override", [False, True])
-def test_good_batch_equals_the_checked_wrappers(kernel, override):
-    srv = _server(kernel)
+def test_good_batch_equals_the_checked_wrappers(dtype, override):
+    srv = _server(dtype=dtype)
     ids, mask = _batch(3)
     ov = _override(3) if override else None
     h = srv.query_device(ids, mask, cidx_override=ov)
@@ -165,22 +169,36 @@ def test_good_batch_equals_the_checked_wrappers(kernel, override):
     codes, beam_scores, cidx, q_rep = srv.coarse(ids, mask)
     if ov is not None:
         cidx = ov
-    if kernel == "fused":
-        s, r = bucket_scores_fused(srv.sorted_emb, srv.offsets_d, cidx,
-                                   q_rep, CAP, ALIGN, device="cpu")
-    else:
-        ci = cidx.long()
-        s, r = bucket_scores_v3(srv.sorted_emb, srv.offsets_d[ci],
-                                srv.offsets_d[ci + 1], q_rep, CAP, ALIGN,
-                                device="cpu")
-    want = merge_pool(s.reshape(B, -1), r.reshape(B, -1), NB, CAP, POOL)
-    for got, w in zip(h, (*want, codes, beam_scores), strict=True):
-        assert torch.equal(got, w)
+    ci, off = cidx.long(), srv.csr.offsets_d
+    for s, r in (bucket_scores_v3(srv.sorted_emb, off[ci], off[ci + 1],
+                                  q_rep, CAP, ALIGN, device="cpu"),
+                 bucket_scores_fused(srv.sorted_emb, off, cidx, q_rep, CAP,
+                                     ALIGN, device="cpu")):
+        want = merge_pool(s.reshape(B, -1), r.reshape(B, -1), NB, CAP,
+                          POOL)
+        for got, w in zip(h, (*want, codes, beam_scores), strict=True):
+            assert torch.equal(got, w)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_cidx_check_counts_one_a_batch(kernel):
-    srv = _server(kernel)
+@pytest.mark.parametrize("cid", ["-1", "C"])
+def test_fine_reranker_refuses_ids_outside_the_csr(monkeypatch, cid):
+    rr = FineReranker(_index(), CAP, POOL, device="cpu")
+    seen = _record_wrapper(monkeypatch, searcher)
+    codes = np.random.default_rng(4).integers(0, KARY, size=(B, NB, M))
+    qemb = torch.ones(B, D)
+    rr(qemb, codes)                         # good codes reach the kernel
+    assert len(seen) == 1
+    # packed radix-KARY: (0, ..., 0, -1) -> -1, (KARY, 0, ..., 0) -> C
+    bad = {"-1": [0] * (M - 1) + [-1], "C": [KARY] + [0] * (M - 1)}
+    codes[2, 1] = bad[cid]
+    with pytest.raises(ValueError, match=re.escape(CIDX_ERROR)):
+        rr(qemb, codes)
+    assert len(seen) == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cidx_check_counts_one_a_batch(dtype):
+    srv = _server(dtype=dtype)
     before = timers.counter("serve.cidx_check")
     h = None
     for seed in range(3):
@@ -204,10 +222,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_query_device_waits_for_nothing(cuda_device, kernel, dtype):
-    srv = _server(kernel, cuda_device, dtype)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_query_device_waits_for_nothing(cuda_device, dtype):
+    srv = _server(cuda_device, dtype)
     dev = cuda_device
     ov = _override(2, dev)
     b1, b2 = _batch(1, dev), _batch(2, dev)
@@ -227,7 +244,7 @@ def test_query_device_waits_for_nothing(cuda_device, kernel, dtype):
     # an id outside the CSR faults at finalize, and reads nothing outside
     # the corpus: the card serves on
     bad = ov.clone()
-    bad[0] = srv.nclusters + 7
+    bad[0] = srv.csr.nclusters + 7
     h = srv.query_device(*_batch(2, dev), cidx_override=bad)
     with pytest.raises(ValueError, match=re.escape(CIDX_ERROR)):
         srv.finalize(h)

@@ -243,11 +243,11 @@ def test_bucket_server_span_tree(rec, server):
                     "beam.topk": list(range(M)),
                     "beam.reorder": list(range(1, M))}
 
-    # a second batch gets its own id; a plain tuple handle finalizes too
+    # a second batch gets its own id, which its finalize takes
     rec.clear()
     h2 = srv.query_device(ids, torch.ones_like(ids))
     assert h2.batch == h.batch + 1
-    srv.finalize(tuple(h2))
+    srv.finalize(h2)
     roots = [x for x in rec.spans() if x.parent == -1]
     assert [(x.name, x.batch) for x in roots] == [
-        ("serve.query_device", h2.batch), ("serve.finalize", None)]
+        ("serve.query_device", h2.batch), ("serve.finalize", h2.batch)]
