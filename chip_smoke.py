@@ -31,7 +31,13 @@ Phases:
      bounds; v3 and fused also at the Evaluator's cap
      (``InferConfig().max_cluster_docs``, 4096) over the same buckets;
      then ``scripts.profile_bucket.profile`` (the v2 path) over the int8
-     corpus;
+     corpus; then the fused RMSNorm (``ops.rmsnorm``) against
+     ``rmsnorm_plain`` on the same inputs at its served shapes (16,384 x
+     768, 5,120 x 768, 16,384 x 2,048 and 512 of 576-wide rows in place)
+     in every pair of x and weight dtypes, one bf16 ulp / 2e-6 relative,
+     its gradients under autograd against the composition's, and
+     ``scripts.profile_rmsnorm.profile`` (kernel, byte bound, plain
+     composition, ``F.rms_norm``);
   2. the main path: ``BucketServer`` with the NCI model (T5-base
      12 + 6 layers, PAWA 4 layers, kary 32, M 4) and the T5 query tower
      (12 + 12 layers), random bf16 weights from the seed, over
@@ -232,7 +238,11 @@ power limit and one JSON object of the kernels (the bf16 phase-1 run,
 with the int8 run under ``int8`` and the float32 run under ``f32``, the
 cap-4096 runs of v3 and fused under ``cap_4096``;
 phase 9's and 11's launches summed over their ranks; phases 10's,
-11's and 12's under ``launches_by_path``, bf16, int8 and f32); the last
+11's and 12's under ``launches_by_path``, bf16, int8 and f32; last the
+fused RMSNorm's, its launches by path: phase 1's checks, each served
+path's warm-up, with the beam's eager run and capture, and timed
+batches, where the beam's replays launch without counting, and phase
+7a's training); the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 card or if any phase fails.
 """
@@ -304,6 +314,13 @@ PIPE8 = dict(config="configs/marco_rq4x5.json", passages=16_384, words=32,
 YARD_BYTES = 8.5e9
 WRAPPER = {"v3": "bucket_scores_v3", "fused": "bucket_scores_fused",
            "v2": "bucket_scores_v2", "raw": "bucket_scores"}
+# the fused RMSNorm at its served shapes (rows x d, /row stride): the beam
+# encoder and the T5 tower, decoder steps 1-4, DeepSeek-V2's layers, its
+# kv_a_layernorm read in place from 576-wide rows
+RMS = dict(src="mevi_tpu_torch/csrc/rmsnorm.cu",
+           replaces="none: mevi_tpu/models/t5.py:53 (RMSNorm, plain jnp)",
+           shapes=("16384x768", "5120x768", "16384x2048", "16384x512/576"),
+           grad_shape="5120x768", eps=1e-6, f32_rel=2e-6, grad_rel=1e-2)
 
 
 def emit(**kw):
@@ -510,6 +527,98 @@ def check_kernel(tag, semb, off_d, cidx, q, cap, dev, reps,
     return results
 
 
+def bf16_ulps(a, b):
+    """The largest distance in bf16 ulps between two bf16 tensors."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(i >= 0x8000, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+# the fused RMSNorm's launches by path: phase 1's checks, each
+# ``run_path`` (warm-up with the beam's eager run and capture, then the
+# timed batches), phase 7a's training
+RMS_LAUNCHES = {}
+
+
+def check_rmsnorm(dev, seed, reps):
+    """The fused RMSNorm against ``rmsnorm_plain`` on the same card
+    inputs at ``RMS["shapes"]`` in every pair of x and weight dtypes: one
+    bf16 ulp for a bf16 output, 2e-6 relative for a float32 one, two
+    launches bitwise equal; the gradients through the kernel against the
+    composition's at ``RMS["grad_shape"]``; then
+    ``scripts.profile_rmsnorm.profile`` (bf16) for the kernel's ms against
+    its byte bound, the plain composition's and ``F.rms_norm``'s."""
+    from mevi_tpu_torch.ops import rmsnorm as R
+    from mevi_tpu_torch.scripts import profile_rmsnorm
+    k = R.build_kernel()
+    emit(rmsnorm_build_s=k.build_seconds, library=k.path.name,
+         ptxas=ptxas_summary(k.build_log))
+    eps, bf16, f32 = RMS["eps"], torch.bfloat16, torch.float32
+    pairs = ((bf16, bf16), (bf16, f32), (f32, bf16), (f32, f32))
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    n0 = R.launch_count()
+    worst = dict(max_abs_err=0.0, bf16_ulps=0, f32_rel=0.0)
+    for shape in RMS["shapes"]:
+        rows, d, stride = profile_rmsnorm.parse_shape(shape)
+        base = 3 * torch.randn((rows, stride), generator=g, device=dev)
+        w32 = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        for xd, wd in pairs:
+            x, w = base.to(xd)[:, :d], w32.to(wd)
+            with torch.inference_mode():
+                got = R.rmsnorm(x, w, eps)
+                again = R.rmsnorm(x, w, eps)
+                want = R.rmsnorm_plain(x, w, eps)
+            tag = f"1_rmsnorm {shape} x {xd} w {wd}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two launches differ")
+            if xd == bf16:
+                ulps = bf16_ulps(got, want)
+                if ulps > 1:
+                    raise AssertionError(f"{tag}: {ulps} bf16 ulps")
+                worst["bf16_ulps"] = max(worst["bf16_ulps"], ulps)
+            else:
+                rel = float(((got - want).abs() / want.abs().clamp_min(
+                    1e-30)).max())
+                if not rel <= RMS["f32_rel"]:
+                    raise AssertionError(f"{tag}: relative error {rel}")
+                worst["f32_rel"] = max(worst["f32_rel"], rel)
+            worst["max_abs_err"] = max(worst["max_abs_err"], float(
+                (got.float() - want.float()).abs().max()))
+        del base, x, got, again, want
+    # under autograd: the kernel's forward, the float32 backward
+    rows, d, _ = profile_rmsnorm.parse_shape(RMS["grad_shape"])
+    grad_err = 0.0
+    for xd, wd in pairs:
+        x = (3 * torch.randn((rows, d), generator=g, device=dev)).to(xd)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(wd)
+        go = torch.randn((rows, d), generator=g, device=dev).to(xd)
+        grads = []
+        for fn in (R.rmsnorm, R.rmsnorm_plain):
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            fn(xa, wa, eps).backward(go)
+            grads.append((xa.grad, wa.grad))
+        for got, ref in zip(*grads):
+            err = float((got.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            if not err <= RMS["grad_rel"]:
+                raise AssertionError(f"1_rmsnorm grad x {xd} w {wd}: {err}")
+            grad_err = max(grad_err, err)
+    n_checks = R.launch_count() - n0
+    if n_checks != len(RMS["shapes"]) * len(pairs) * 2 + len(pairs):
+        raise AssertionError(f"1_rmsnorm: {n_checks} launches counted")
+    RMS_LAUNCHES["1_checks"] = n_checks
+    prof = profile_rmsnorm.profile(list(RMS["shapes"]), reps, seed)
+    emit(phase="1_rmsnorm", shapes=list(RMS["shapes"]),
+         dtype_pairs=[f"{a} x {b}" for a, b in pairs], launches=n_checks,
+         **worst, grad_shape=RMS["grad_shape"], grad_max_rel_err=grad_err,
+         profile=prof)
+    head = prof["shapes"][RMS["shapes"][0]]
+    return dict(**worst, grad_max_rel_err=grad_err, ms=head["kernel_ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                library_ms=head["library_ms"], shapes=prof["shapes"])
+
+
 # ---------------------------------------------------------------------------
 # phases 2 and 3: the served path
 # ---------------------------------------------------------------------------
@@ -621,11 +730,21 @@ def check_outputs(tag, out, cfg, B):
 
 def run_path(tag, server, batches, cfg):
     """Warm-up, then timed batches; counts the launches of the served
-    kernel (v3) only across this path's own batches."""
+    kernel (v3) only across this path's own batches, and the fused
+    RMSNorm's in the warm-up and in the timed batches."""
     from mevi_tpu_torch.ops.bucket import launch_counts
+    from mevi_tpu_torch.ops.rmsnorm import launch_count as rms_count
+    from mevi_tpu_torch.utils.timers import counter
+    rms0, cap0 = rms_count(), counter("beam.graph.capture")
     for ids, mask, ov in batches[:cfg["warmup"]]:
         server.finalize(server.query_device(ids, mask, ov))
     torch.cuda.synchronize()
+    rms_warm = rms_count() - rms0
+    captures = counter("beam.graph.capture") - cap0
+    if captures and not rms_warm:
+        raise AssertionError(f"{tag}: the beam's capture launched no "
+                             "RMSNorm kernel")
+    rms0 = rms_count()
     launches0 = launch_counts()["v3"]
     stage_ms, q_ms, last = [], [], None
     for ids, mask, ov in batches[cfg["warmup"]:]:
@@ -639,6 +758,12 @@ def run_path(tag, server, batches, cfg):
     launches = launch_counts()["v3"] - launches0
     if launches == 0:
         raise AssertionError(f"{tag}: the bucket kernel never launched")
+    # timed: each served call's eager tower norms; the beam's replays
+    # launch without counting
+    rms_timed = rms_count() - rms0
+    RMS_LAUNCHES[tag] = {"warmup": rms_warm, "captures": captures,
+                         "timed": rms_timed,
+                         "timed_per_call": rms_timed / (2 * len(stage_ms))}
     med = {k: statistics.median(m[k] for m in stage_ms)
            for k in stage_ms[0]}
     B = batches[0][0].shape[0]
@@ -646,7 +771,8 @@ def run_path(tag, server, batches, cfg):
     emit(phase=tag, batches=len(stage_ms), batch=B, **med,
          query_ms=statistics.median(q_ms),
          queries_per_s=B / (statistics.median(q_ms) * 1e-3),
-         kernel_launches=launches, pool_filled=fill, ndoc_per_query=ndoc)
+         kernel_launches=launches, pool_filled=fill, ndoc_per_query=ndoc,
+         rmsnorm_launches=RMS_LAUNCHES[tag])
     return launches, last
 
 
@@ -1630,6 +1756,7 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
     from mevi_tpu_torch.models.t5 import T5Dims, T5Model
     from mevi_tpu_torch.models.twin_tower import Tower
     from mevi_tpu_torch.ops import rq as rq_ops
+    from mevi_tpu_torch.ops.rmsnorm import launch_count as rms_count
     from mevi_tpu_torch.serve import BucketServer
     from mevi_tpu_torch.train import joint as J
     from mevi_tpu_torch.train import trainer as T
@@ -1676,6 +1803,7 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         make_step = observe_steps(T, "make_nci_train_step", rec)
+        rms0 = rms_count()
         try:
             state = cli_main([
                 "train", "--config", cfgp, "--queries", osp.join(tmp, "q"),
@@ -1689,6 +1817,10 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
             T.make_nci_train_step = make_step
         torch.cuda.synchronize()
         secs["train_command_s"] = time.perf_counter() - t0
+        # every norm of a step through the kernel, under autograd
+        RMS_LAUNCHES["7a_train"] = rms_count() - rms0
+        if not RMS_LAUNCHES["7a_train"]:
+            raise AssertionError("7a: training launched no RMSNorm kernel")
         peak_train = torch.cuda.max_memory_allocated() / 1e9
         step_ms = np.array([a.elapsed_time(b) for a, b in step_ev])
         window_ms = step_ev[0][0].elapsed_time(step_ev[-1][1])
@@ -1716,6 +1848,7 @@ def train_phase(cfg, seed, dev, qtower, corpus, nci_out=None):
              bf16_dense_peak_share=(flops / (med * 1e-3)
                                     / H100_SXM_BF16_DENSE_FLOPS),
              peak_device_gb=peak_train, card=card_line(),
+             rmsnorm_launches=RMS_LAUNCHES["7a_train"],
              loss_first_20=losses[:20], loss_last_20=losses[-20:],
              dev_hit10_leaderboard=board, seconds=secs)
 
@@ -4280,6 +4413,7 @@ def serve_phases(cfg, seed, dev, phase1_only=False):
         raise AssertionError("1: profile_bucket never launched v2")
     emit(phase="1_profile_bucket", corpus="int8", G=G, cap=cfg["cap"],
          reps=cfg["profile_reps"], launches=n_profile, **prof)
+    p1["rmsnorm"] = check_rmsnorm(dev, seed, cfg["kernel_reps"])
     if phase1_only:
         return None
 
@@ -4524,6 +4658,21 @@ def run_phases(cfg, seed, dev, t_start, nci_path, workdir, phase6_only,
             {"11a_sharded_parity_f32": n11["11a_sharded_parity_f32"]}
             if mode == "v3" else {})
         kernels.append(entry)
+    from mevi_tpu_torch.ops.rmsnorm import launch_count as rms_count
+    r = p1["rmsnorm"]
+    kernels.append({
+        "name": "rmsnorm", "route": "cuda", "source": RMS["src"],
+        "replaces": RMS["replaces"],
+        "launches": sum(v if isinstance(v, int) else v["warmup"] + v["timed"]
+                        for v in RMS_LAUNCHES.values()),
+        "launches_by_path": RMS_LAUNCHES,
+        "launches_in_process": rms_count(),
+        "max_abs_err": r["max_abs_err"], "max_bf16_ulps": r["bf16_ulps"],
+        "max_f32_rel_err": r["f32_rel"],
+        "grad_max_rel_err": r["grad_max_rel_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": r["library_ms"],
+        "shape": RMS["shapes"][0], "shapes": r["shapes"]})
     emit(total_s=time.perf_counter() - t_start, int8_launches=int8_paths,
          eval_launches=n_eval)
     print(card_line(), flush=True)

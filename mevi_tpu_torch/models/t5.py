@@ -2,7 +2,8 @@
 ``mevi_tpu.models.t5`` (and so HF T5).
 
 * attention is not scaled by 1/sqrt(d_k) (T5 folds it into init),
-* RMSNorm without mean subtraction or bias,
+* RMSNorm without mean subtraction or bias, in float32 (on CUDA one
+  fused kernel, ``ops.rmsnorm``),
 * relative position bias only in block 0 of each stack, shared onward,
 * additive -1e9 masks, softmax in float32,
 * heads-last layouts ``(b, l, h, dk)`` at every public function, and
@@ -35,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import device_constant, frozen_eval, resolve_device
+from ..ops.rmsnorm import rmsnorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +66,7 @@ class RMSNorm(nn.Module):
                                               dtype=dtype))
 
     def forward(self, x):
-        xf = x.float()
-        var = xf.square().mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps)
-        return (self.weight.float() * y).to(x.dtype)
+        return rmsnorm(x, self.weight, self.eps)
 
 
 def _log_f32(x: float) -> torch.Tensor:

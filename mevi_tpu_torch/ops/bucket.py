@@ -42,24 +42,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional
+from typing import Dict
 
 import torch
 
 from .. import resolve_device
 from ..utils.timers import count, counter, span
+from .nvcc import KernelLibrary, build_library
 
 ALIGN = 8
 NEG = -1e30
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "bucket.cu"
-_BUILD = Path(__file__).resolve().parents[2] / "build"
 _SEMB_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_CHUNK = 256          # buckets per gathered block in the plain path
@@ -131,42 +125,14 @@ def align_down(x, align: int = ALIGN):
 # the kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-class KernelLibrary(NamedTuple):
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: Optional[float]    # None: built by an earlier process
-    build_log: str
-
-
 @functools.lru_cache(maxsize=None)
 def build_kernel() -> KernelLibrary:
     """Build ``csrc/bucket.cu`` with nvcc into ``build/`` (file named by
     the source's hash) unless it is there, and load it with ctypes."""
-    src = _SRC.read_bytes()
-    path = _BUILD / f"libmevi_bucket_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    secs, log = None, ""
-    if not path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("bucket kernel: nvcc not found")
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        # --split-compile 0: the kernel instances are optimised on every
-        # core (92 instances of one source)
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "--split-compile", "0", "-Xptxas", "-v", "-o", tmp,
-               str(_SRC)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"bucket kernel: nvcc failed:\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    # --split-compile 0: the kernel instances are optimised on every
+    # core (92 instances of one source)
+    k = build_library(_SRC, "mevi_bucket", ("--split-compile", "0"))
+    lib = k.lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mevi_bucket_scores.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i,
                                        p, p, p]
@@ -179,7 +145,7 @@ def build_kernel() -> KernelLibrary:
     lib.mevi_bucket_scores_v2.restype = i
     lib.mevi_cuda_error_string.argtypes = [i]
     lib.mevi_cuda_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, path, secs, log)
+    return k
 
 
 def _check(semb, qemb, cap, align, index_tensors, device):

@@ -18,7 +18,8 @@ the device operations launched inside it.
 
 Counters.  ``count(name, n)`` adds to a named counter whether spans are
 on or off (the bucket kernels' launches, ``bucket.launches.<mode>``; the
-server's device-side cluster id checks, ``serve.cidx_check``);
+fused RMSNorm's, ``rmsnorm.kernel``; the server's device-side cluster id
+checks, ``serve.cidx_check``);
 ``counter(name)`` reads it.
 """
 
